@@ -1,5 +1,8 @@
 // Multilevel ROIAlign (crop_and_resize sampling) over P2..P5, for Hopper
-// (sm_90a).
+// (sm_90a), and its gradient in the levels (roi_align_backward_kernel,
+// below): the VJP of ops/roi_align.py::multilevel_roi_align_batched, which
+// the JAX training graph takes through XLA and the two Pallas kernels do
+// not have.
 //
 // Replaces: caesar_mrcnn_tpu/ops/roi_align_pallas.py::multilevel_roi_align_vmem
 // and ::multilevel_roi_align_pallas (the two Pallas TPU kernels), and the XLA
@@ -22,18 +25,21 @@
 // (levels come from the wrapper, computed by the plain version's
 // roi_levels).
 //
-// Numerics follow ops/roi_align.py: positions (lo + (hi - lo) * t) * (H - 1)
-// with jnp.linspace's t = p * (1 / (P - 1)) and t = 1 at the last sample, so
-// a border-touching box lands exactly on H - 1;
-// taps out of range read 0; the four products are summed in f32, in the
-// plain version's order, with explicitly rounded operations, and rounded
-// once to the feature dtype.
+// Numerics follow ops/roi_align.py: sample positions, taps and weights from
+// sampling.cuh (shared with the backward and crop_and_resize.cu); samples
+// outside the map read 0; the four products are summed in f32, in the plain
+// version's order, with explicitly rounded operations, and rounded once to
+// the feature dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sampling.cuh"
+
 namespace {
+
+using caesar::Tap;
 
 constexpr int kMaxPool = 32;
 
@@ -72,8 +78,32 @@ struct Pair<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
+// The box's taps along y (axis 0, against h) and x (axis 1, against w),
+// computed once per block into shared memory.
+__device__ __forceinline__ void box_taps(Tap (&taps)[2][kMaxPool],
+                                         const float* box, int h, int w,
+                                         int pool) {
+  for (int k = threadIdx.x; k < 2 * pool; k += blockDim.x) {
+    const int axis = k / pool;
+    const int p = k - axis * pool;
+    taps[axis][p] = caesar::sample(box[axis], box[axis + 2],
+                                   axis == 0 ? h : w, pool, p);
+  }
+  __syncthreads();
+}
+
+// Bilinear weights of the four taps (00, 01, 10, 11 = y, x) of one sample.
+struct Corners {
+  float w00, w01, w10, w11;
+};
+
+__device__ __forceinline__ Corners corners(float wy, float wx) {
+  Corners k;
+  k.w00 = __fmul_rn(__fsub_rn(1.0f, wy), __fsub_rn(1.0f, wx));
+  k.w01 = __fmul_rn(__fsub_rn(1.0f, wy), wx);
+  k.w10 = __fmul_rn(wy, __fsub_rn(1.0f, wx));
+  k.w11 = __fmul_rn(wy, wx);
+  return k;
 }
 
 // ((f00*w00 + f01*w01) + f10*w10) + f11*w11, each step rounded.
@@ -91,10 +121,7 @@ __global__ void roi_align_kernel(Levels lv, int c, int n,
                                  const float* __restrict__ boxes,
                                  const int32_t* __restrict__ levels, int pool,
                                  T* __restrict__ out) {
-  __shared__ float s_w[2][kMaxPool];  // fractional part, per axis
-  __shared__ int s_lo[2][kMaxPool];   // tap 0 index
-  __shared__ int s_hi[2][kMaxPool];   // tap 1 index
-  __shared__ bool s_in[2][kMaxPool];  // sample inside the map
+  __shared__ Tap taps[2][kMaxPool];
 
   const int box = blockIdx.x;
   const int b = box / n;
@@ -102,42 +129,21 @@ __global__ void roi_align_kernel(Levels lv, int c, int n,
   const int h = lv.h[level];
   const int w = lv.w[level];
   const T* f = static_cast<const T*>(lv.ptr[level]) + (size_t)b * h * w * c;
-
-  // axis 0: y against h, axis 1: x against w
-  for (int k = threadIdx.x; k < 2 * pool; k += blockDim.x) {
-    const int axis = k / pool;
-    const int p = k - axis * pool;
-    const float lo = boxes[(size_t)box * 4 + axis];
-    const float hi = boxes[(size_t)box * 4 + axis + 2];
-    const float extent_m1 = __fsub_rn((float)(axis == 0 ? h : w), 1.0f);
-    const float step = __fdiv_rn(1.0f, (float)(pool - 1));
-    const float t = p == pool - 1 ? 1.0f : __fmul_rn((float)p, step);
-    const float pos = __fmul_rn(__fadd_rn(lo, __fmul_rn(__fsub_rn(hi, lo), t)), extent_m1);
-    const float t0 = clampf(floorf(pos), 0.0f, extent_m1);
-    const float t1 = clampf(__fadd_rn(t0, 1.0f), 0.0f, extent_m1);
-    s_in[axis][p] = pos >= 0.0f && pos <= extent_m1;
-    s_w[axis][p] = __fsub_rn(clampf(pos, 0.0f, extent_m1), t0);
-    s_lo[axis][p] = (int)t0;
-    s_hi[axis][p] = (int)t1;
-  }
-  __syncthreads();
+  box_taps(taps, boxes + (size_t)box * 4, h, w, pool);
 
   T* o = out + (size_t)box * pool * pool * c;
   const int pairs = c >> 1;
   for (int py = 0; py < pool; ++py) {
-    const float wy = s_w[0][py];
-    const T* row0 = f + (size_t)s_lo[0][py] * w * c;
-    const T* row1 = f + (size_t)s_hi[0][py] * w * c;
+    const Tap ty = taps[0][py];
+    const T* row0 = f + (size_t)ty.lo * w * c;
+    const T* row1 = f + (size_t)ty.hi * w * c;
     for (int px = 0; px < pool; ++px) {
       T* dst = o + ((size_t)py * pool + px) * c;
-      const bool inside = s_in[0][py] && s_in[1][px];
-      const float wx = s_w[1][px];
-      const float w00 = __fmul_rn(__fsub_rn(1.0f, wy), __fsub_rn(1.0f, wx));
-      const float w01 = __fmul_rn(__fsub_rn(1.0f, wy), wx);
-      const float w10 = __fmul_rn(wy, __fsub_rn(1.0f, wx));
-      const float w11 = __fmul_rn(wy, wx);
-      const size_t x0 = (size_t)s_lo[1][px] * c;
-      const size_t x1 = (size_t)s_hi[1][px] * c;
+      const Tap tx = taps[1][px];
+      const bool inside = ty.inside && tx.inside;
+      const Corners k = corners(ty.w, tx.w);
+      const size_t x0 = (size_t)tx.lo * c;
+      const size_t x1 = (size_t)tx.hi * c;
       for (int q = threadIdx.x; q < pairs; q += blockDim.x) {
         const int ch = q << 1;
         float a = 0.0f, bb = 0.0f;
@@ -146,8 +152,8 @@ __global__ void roi_align_kernel(Levels lv, int c, int n,
           const float2 f01 = Pair<T>::to_float2(Pair<T>::load(row0 + x1 + ch));
           const float2 f10 = Pair<T>::to_float2(Pair<T>::load(row1 + x0 + ch));
           const float2 f11 = Pair<T>::to_float2(Pair<T>::load(row1 + x1 + ch));
-          a = blend(f00.x, f01.x, f10.x, f11.x, w00, w01, w10, w11);
-          bb = blend(f00.y, f01.y, f10.y, f11.y, w00, w01, w10, w11);
+          a = blend(f00.x, f01.x, f10.x, f11.x, k.w00, k.w01, k.w10, k.w11);
+          bb = blend(f00.y, f01.y, f10.y, f11.y, k.w00, k.w01, k.w10, k.w11);
         }
         Pair<T>::store(dst + ch, a, bb);
       }
@@ -155,7 +161,99 @@ __global__ void roi_align_kernel(Levels lv, int c, int n,
   }
 }
 
+// Backward: the VJP of roi_align_kernel with respect to the levels (boxes
+// carry no gradient). Same grid and the same taps and weights as the
+// forward (box_taps, corners); each inside sample scatter-adds
+// grad * w_tap into its four taps with f32 atomicAdd on an f32 scratch copy
+// of the level (grads: [B, H_l, W_l, C] f32 per level, zeroed by the
+// caller). Taps the forward read as 0 (samples outside the map) get
+// nothing. Atomics make the order of the sums, and so the f32 rounding,
+// vary from run to run.
+//
+// What bounds it on the card: f32 atomics. At the training shapes (8 x 512
+// boxes x 7x7 and 8 x 168 x 14x14, C = 256) a call issues 205M or 270M
+// atomicAdds, and coarse levels are contended (a P5 pixel can receive
+// thousands of them); neighbouring threads add to neighbouring
+// channels, so each warp's atomics fall on consecutive addresses.
+template <typename T>
+__global__ void roi_align_backward_kernel(Levels grads, int c, int n,
+                                          const float* __restrict__ boxes,
+                                          const int32_t* __restrict__ levels,
+                                          int pool,
+                                          const T* __restrict__ grad_out) {
+  __shared__ Tap taps[2][kMaxPool];
+
+  const int box = blockIdx.x;
+  const int b = box / n;
+  const int level = levels[box];
+  const int h = grads.h[level];
+  const int w = grads.w[level];
+  float* g = static_cast<float*>(const_cast<void*>(grads.ptr[level])) +
+             (size_t)b * h * w * c;
+  box_taps(taps, boxes + (size_t)box * 4, h, w, pool);
+
+  const T* go = grad_out + (size_t)box * pool * pool * c;
+  const int pairs = c >> 1;
+  for (int py = 0; py < pool; ++py) {
+    const Tap ty = taps[0][py];
+    if (!ty.inside) continue;
+    float* row0 = g + (size_t)ty.lo * w * c;
+    float* row1 = g + (size_t)ty.hi * w * c;
+    for (int px = 0; px < pool; ++px) {
+      const Tap tx = taps[1][px];
+      if (!tx.inside) continue;
+      const Corners k = corners(ty.w, tx.w);
+      const size_t x0 = (size_t)tx.lo * c;
+      const size_t x1 = (size_t)tx.hi * c;
+      const T* src = go + ((size_t)py * pool + px) * c;
+      for (int q = threadIdx.x; q < pairs; q += blockDim.x) {
+        const int ch = q << 1;
+        const float2 d = Pair<T>::to_float2(Pair<T>::load(src + ch));
+        atomicAdd(row0 + x0 + ch, __fmul_rn(d.x, k.w00));
+        atomicAdd(row0 + x0 + ch + 1, __fmul_rn(d.y, k.w00));
+        atomicAdd(row0 + x1 + ch, __fmul_rn(d.x, k.w01));
+        atomicAdd(row0 + x1 + ch + 1, __fmul_rn(d.y, k.w01));
+        atomicAdd(row1 + x0 + ch, __fmul_rn(d.x, k.w10));
+        atomicAdd(row1 + x0 + ch + 1, __fmul_rn(d.y, k.w10));
+        atomicAdd(row1 + x1 + ch, __fmul_rn(d.x, k.w11));
+        atomicAdd(row1 + x1 + ch + 1, __fmul_rn(d.y, k.w11));
+      }
+    }
+  }
+}
+
 }  // namespace
+
+// grad_out: [B, N, pool, pool, C] in dtype (0 = float32, 1 = bfloat16);
+// g2..g5: f32 level gradients [B, H_l, W_l, C], zeroed, accumulated into.
+extern "C" int caesar_roi_align_backward(void* g2, void* g3, void* g4, void* g5,
+                                         int h2, int w2, int h3, int w3,
+                                         int h4, int w4, int h5, int w5,
+                                         int batch, int c, const float* boxes,
+                                         const int32_t* levels, int n, int pool,
+                                         int dtype, const void* grad_out,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Levels lv;
+  lv.ptr[0] = g2; lv.ptr[1] = g3; lv.ptr[2] = g4; lv.ptr[3] = g5;
+  lv.h[0] = h2; lv.h[1] = h3; lv.h[2] = h4; lv.h[3] = h5;
+  lv.w[0] = w2; lv.w[1] = w3; lv.w[2] = w4; lv.w[3] = w5;
+  if (pool < 2 || pool > kMaxPool || (c & 1)) return (int)cudaErrorInvalidValue;
+  const int pairs = c / 2;
+  const int threads = pairs >= 256 ? 256 : ((pairs + 31) / 32) * 32;
+  const unsigned int blocks = (unsigned int)batch * (unsigned int)n;
+  if (dtype == 0) {
+    roi_align_backward_kernel<float><<<blocks, threads, 0, s>>>(
+        lv, c, n, boxes, levels, pool, static_cast<const float*>(grad_out));
+  } else if (dtype == 1) {
+    roi_align_backward_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
+        lv, c, n, boxes, levels, pool,
+        static_cast<const __nv_bfloat16*>(grad_out));
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
 
 // dtype: 0 = float32, 1 = bfloat16. levels: [B*N] int32 in 0..3.
 extern "C" int caesar_roi_align(const void* p2, const void* p3, const void* p4,

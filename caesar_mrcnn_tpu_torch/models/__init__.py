@@ -1,2 +1,3 @@
-"""Mask R-CNN modules (backbone, FPN, RPN, heads) and the functions of the
-inference graph (proposals, refinement, forward_inference)."""
+"""Mask R-CNN modules (backbone, FPN, RPN, heads), the functions of the
+inference graph (proposals, refinement, forward_inference) and of the
+training graph (targets, losses, forward_train)."""

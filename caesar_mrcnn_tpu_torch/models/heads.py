@@ -26,11 +26,19 @@ class ClassifierHead(nn.Module):
         self.mrcnn_class_logits = Linear(fc_size, num_classes)
         self.mrcnn_bbox_fc = Linear(fc_size, num_classes * 4)
 
+    @staticmethod
+    def _as_linear(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """A conv whose window covers its whole NHWC input, as one matrix
+        product: [R, p, p, C] -> [R, out]. The weight keeps its OIHW
+        shape (the flax bridge's); it is read in (O, H, W, I) order to
+        match the input's flatten order. cuDNN's weight gradient of the 7x7
+        VALID conv took 454 ms per train step on the card."""
+        w = conv.weight.permute(0, 2, 3, 1).reshape(conv.weight.shape[0], -1)
+        return F.linear(x.reshape(x.shape[0], -1), w.to(x.dtype), conv.bias.to(x.dtype))
+
     def forward(self, x: torch.Tensor):
-        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view, channels_last memory
-        x = F.relu(self.mrcnn_class_bn1(self.mrcnn_class_conv1(x)))
-        x = F.relu(self.mrcnn_class_bn2(self.mrcnn_class_conv2(x)))
-        shared = x.reshape(x.shape[0], -1)
+        x = F.relu(self.mrcnn_class_bn1(self._as_linear(self.mrcnn_class_conv1, x)))
+        shared = F.relu(self.mrcnn_class_bn2(self._as_linear(self.mrcnn_class_conv2, x)))
         logits = self.mrcnn_class_logits(shared).float()
         bbox = self.mrcnn_bbox_fc(shared).float().reshape(-1, self.num_classes, 4)
         return logits, torch.softmax(logits, dim=-1), bbox

@@ -1,15 +1,18 @@
-"""Mask R-CNN assembly, inference half (port of
-``caesar_mrcnn_tpu/models/mask_rcnn.py:124-250``).
+"""Mask R-CNN assembly (port of ``caesar_mrcnn_tpu/models/mask_rcnn.py``).
 
-``MaskRCNN`` holds the trainable modules; :func:`forward_inference` is the
+``MaskRCNN`` holds the trainable modules. :func:`forward_inference` is the
 detect graph: features, RPN, proposals (NMS kernel), ROIAlign at 7 (kernel),
 classifier, refinement (NMS kernel), ROIAlign at 14 (kernel), mask head,
 the detected class's mask channel, and the u8 mask wire.
+:func:`forward_train` is the training graph: features, RPN, proposals (NMS
+kernel) and targets (crop_and_resize kernel) without gradient, ROIAlign at
+7 and at 14 on the positive prefix (kernel, with its backward kernel), and
+the heads.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -20,6 +23,7 @@ from .detection import refine_detections
 from .heads import ClassifierHead, MaskHead
 from .proposals import generate_proposals
 from .rpn import RPNHead
+from .targets import detection_targets
 
 
 def compute_dtype(config) -> torch.dtype:
@@ -132,3 +136,89 @@ def forward_inference(
         # 1/255 quantization is invisible there
         masks = torch.round(masks * 255.0).to(torch.uint8)
     return InferenceOutput(detections, masks, proposals, rpn_probs)
+
+
+# ---------------------------------------------------------------- training
+
+
+class TrainForward(NamedTuple):
+    rpn_class_logits: torch.Tensor  # [B, A, 2]
+    rpn_bbox: torch.Tensor          # [B, A, 4]
+    class_logits: torch.Tensor      # [B, R, C]
+    bbox_deltas: torch.Tensor       # [B, R, C, 4]
+    masks: torch.Tensor             # [B, Rp, mh, mw, C], positive-ROI prefix only
+    target_class_ids: torch.Tensor  # [B, R]
+    target_deltas: torch.Tensor     # [B, R, 4]
+    target_masks: torch.Tensor      # [B, R, mh, mw]
+    rois: torch.Tensor              # [B, R, 4]
+
+
+def check_train_config(cfg) -> None:
+    """Refuse the training options the port does not have yet (ROADMAP A11)."""
+    if getattr(cfg, "train_remat", "none") != "none":
+        raise NotImplementedError("train_remat other than 'none' is not ported yet (ROADMAP A11)")
+    if cfg.train_bn:
+        raise NotImplementedError("train_bn=True is not ported yet (ROADMAP A11)")
+
+
+def forward_train(
+    model: MaskRCNN,
+    images: torch.Tensor,        # [B, H, W, C] molded, float32
+    gt_class_ids: torch.Tensor,  # [B, G] zero-padded; negative = crowd
+    gt_boxes: torch.Tensor,      # [B, G, 4] normalized, zero-padded
+    gt_masks: torch.Tensor,      # [B, mH, mW, G] float32
+    anchors: torch.Tensor,       # [A, 4] normalized
+    rpn_bbox_std_dev: torch.Tensor,
+    ext_rois: Optional[torch.Tensor] = None,
+    priorities: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> TrainForward:
+    """Training forward: head outputs and sampled targets (frozen batch
+    norm; the JAX ``forward_train`` with ``train_remat="none"``).
+
+    Proposals and targets are built without gradient: they are labels.
+    ``ext_rois`` [B, P, 4] replaces the proposals (head-only training with
+    given ROIs); the RPN still runs for its losses. ``priorities`` and
+    ``generator`` go to :func:`~.targets.detection_targets`. The mask head
+    runs on the positive prefix of the ROIs only: the targets put every
+    positive there, and the mask loss ignores the other slots.
+    """
+    cfg = model.config
+    check_train_config(cfg)
+    pyramid = model.features(images)
+    rpn_logits, rpn_probs, rpn_bbox = model.rpn(pyramid)
+
+    with torch.no_grad():
+        if ext_rois is None:
+            proposals, _ = generate_proposals(
+                rpn_probs, rpn_bbox, anchors, rpn_bbox_std_dev,
+                proposal_count=cfg.post_nms_rois_training,
+                nms_threshold=cfg.rpn_nms_threshold,
+                pre_nms_limit=cfg.pre_nms_limit,
+            )
+        else:
+            proposals = ext_rois.float()
+        rois, target_class_ids, target_deltas, target_masks = detection_targets(
+            proposals, gt_class_ids, gt_boxes, gt_masks, cfg,
+            priorities=priorities, generator=generator,
+        )
+
+    levels = nhwc_levels(pyramid)
+    image_shape = cfg.image_shape[:2]
+    pooled = roi_align(levels, rois, image_shape, cfg.pool_size)
+    class_logits, _, bbox_deltas = model.classifier(pooled)
+
+    pos_cap = int(cfg.train_rois_per_image * cfg.roi_positive_ratio)
+    mask_pooled = roi_align(levels, rois[:, :pos_cap].contiguous(), image_shape, cfg.mask_pool_size)
+    masks = model.mask(mask_pooled)
+    return TrainForward(
+        rpn_class_logits=rpn_logits,
+        rpn_bbox=rpn_bbox,
+        class_logits=class_logits,
+        bbox_deltas=bbox_deltas,
+        masks=masks,
+        target_class_ids=target_class_ids,
+        target_deltas=target_deltas,
+        target_masks=target_masks,
+        rois=rois,
+    )

@@ -1,2 +1,3 @@
-"""Device ops: batched NMS and multilevel ROIAlign, each a CUDA kernel with
-its plain PyTorch version beside it."""
+"""Device ops: batched NMS, multilevel ROIAlign and its gradient, and the
+mask-target crop_and_resize, each a CUDA kernel with its plain PyTorch
+version beside it."""

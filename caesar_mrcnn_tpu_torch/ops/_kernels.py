@@ -24,9 +24,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,32 +49,43 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libcaesar_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands in parallel; raise with the compiler's messages if
+    any fails. Returns their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for p, c, o in zip(procs, cmds, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
 def build() -> tuple:
-    """Compile ``csrc/*.cu`` unless the hashed library already exists.
-    Returns (library path, compiler messages: ptxas's register and
-    shared-memory use; empty when nothing was built)."""
+    """Compile ``csrc/*.cu`` unless the hashed library already exists: one
+    nvcc per source, all started together, then one link. Returns (library
+    path, compiler messages: ptxas's register and shared-memory use; empty
+    when nothing was built)."""
     out = library_path()
     if out.is_file():
         return out, ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
-    return out, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(_sources(), objs)])
+        lib = os.path.join(tmp, out.name)
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, out)  # atomic: a concurrent build never sees a partial file
+    return out, log
 
 
 @functools.lru_cache(maxsize=1)
@@ -84,6 +96,10 @@ def library() -> ctypes.CDLL:
     lib.caesar_nms.restype = _I
     lib.caesar_roi_align.argtypes = [_P] * 4 + [_I] * 10 + [_P, _P, _I, _I, _I, _P, _P]
     lib.caesar_roi_align.restype = _I
+    lib.caesar_roi_align_backward.argtypes = [_P] * 4 + [_I] * 10 + [_P, _P, _I, _I, _I, _P, _P]
+    lib.caesar_roi_align_backward.restype = _I
+    lib.caesar_crop_and_resize.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P]
+    lib.caesar_crop_and_resize.restype = _I
     return lib
 
 

@@ -43,6 +43,80 @@ def clip_boxes(boxes: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     return torch.stack([y1, x1, y2, x2], dim=-1)
 
 
+def overlaps(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU [..., N1, N2] of [..., N1, 4] and [..., N2, 4]
+    (``overlaps_jax``, batched); zero-area pairs give 0."""
+    y1 = torch.maximum(boxes1[..., :, None, 0], boxes2[..., None, :, 0])
+    x1 = torch.maximum(boxes1[..., :, None, 1], boxes2[..., None, :, 1])
+    y2 = torch.minimum(boxes1[..., :, None, 2], boxes2[..., None, :, 2])
+    x2 = torch.minimum(boxes1[..., :, None, 3], boxes2[..., None, :, 3])
+    inter = (y2 - y1).clamp_min(0.0) * (x2 - x1).clamp_min(0.0)
+    area1 = (boxes1[..., 2] - boxes1[..., 0]) * (boxes1[..., 3] - boxes1[..., 1])
+    area2 = (boxes2[..., 2] - boxes2[..., 0]) * (boxes2[..., 3] - boxes2[..., 1])
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return torch.where(union > 0, inter / union.clamp_min(1e-12), torch.zeros_like(union))
+
+
+def box_refinement(box: torch.Tensor, gt_box: torch.Tensor) -> torch.Tensor:
+    """Deltas turning ``box`` into ``gt_box`` (``box_refinement_jax``):
+    heights and widths are floored at 1e-8 so padded boxes give no NaN."""
+    h = (box[..., 2] - box[..., 0]).clamp_min(1e-8)
+    w = (box[..., 3] - box[..., 1]).clamp_min(1e-8)
+    gh = (gt_box[..., 2] - gt_box[..., 0]).clamp_min(1e-8)
+    gw = (gt_box[..., 3] - gt_box[..., 1]).clamp_min(1e-8)
+    dy = (gt_box[..., 0] + 0.5 * gh - (box[..., 0] + 0.5 * h)) / h
+    dx = (gt_box[..., 1] + 0.5 * gw - (box[..., 1] + 0.5 * w)) / w
+    return torch.stack([dy, dx, torch.log(gh / h), torch.log(gw / w)], dim=-1)
+
+
+# ------------------------------------------------------------------- numpy
+
+
+def extract_bboxes(mask: np.ndarray) -> np.ndarray:
+    """Pixel boxes of a [H, W, N] mask stack -> [N, 4] int32; an empty mask
+    gives a zero box (numpy, as ``utils/boxes.py::extract_bboxes``)."""
+    n = mask.shape[-1]
+    boxes = np.zeros([n, 4], dtype=np.int32)
+    any_x = mask.any(axis=0)  # [W, N]
+    any_y = mask.any(axis=1)  # [H, N]
+    for i in range(n):
+        xs = np.flatnonzero(any_x[:, i])
+        ys = np.flatnonzero(any_y[:, i])
+        if xs.size:
+            boxes[i] = (ys[0], xs[0], ys[-1] + 1, xs[-1] + 1)
+    return boxes
+
+
+def compute_overlaps(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:
+    """Pairwise IoU [N1, N2] in f64 (numpy, as ``utils/boxes.py::compute_overlaps``)."""
+    boxes1 = np.asarray(boxes1, dtype=np.float64)
+    boxes2 = np.asarray(boxes2, dtype=np.float64)
+    area1 = (boxes1[:, 2] - boxes1[:, 0]) * (boxes1[:, 3] - boxes1[:, 1])
+    area2 = (boxes2[:, 2] - boxes2[:, 0]) * (boxes2[:, 3] - boxes2[:, 1])
+    y1 = np.maximum(boxes1[:, None, 0], boxes2[None, :, 0])
+    x1 = np.maximum(boxes1[:, None, 1], boxes2[None, :, 1])
+    y2 = np.minimum(boxes1[:, None, 2], boxes2[None, :, 2])
+    x2 = np.minimum(boxes1[:, None, 3], boxes2[None, :, 3])
+    inter = np.maximum(y2 - y1, 0) * np.maximum(x2 - x1, 0)
+    union = area1[:, None] + area2[None, :] - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(union > 0, inter / union, 0.0)
+
+
+def box_refinement_np(box: np.ndarray, gt_box: np.ndarray) -> np.ndarray:
+    """Deltas turning ``box`` into ``gt_box``, f32 (numpy, as
+    ``utils/boxes.py::box_refinement``)."""
+    box = box.astype(np.float32)
+    gt_box = gt_box.astype(np.float32)
+    h = box[:, 2] - box[:, 0]
+    w = box[:, 3] - box[:, 1]
+    gh = gt_box[:, 2] - gt_box[:, 0]
+    gw = gt_box[:, 3] - gt_box[:, 1]
+    dy = (gt_box[:, 0] + 0.5 * gh - (box[:, 0] + 0.5 * h)) / h
+    dx = (gt_box[:, 1] + 0.5 * gw - (box[:, 1] + 0.5 * w)) / w
+    return np.stack([dy, dx, np.log(gh / h), np.log(gw / w)], axis=1)
+
+
 def norm_boxes(boxes: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
     """Pixel -> normalized coords (numpy, as ``utils/boxes.py::norm_boxes``)."""
     h, w = shape

@@ -75,6 +75,36 @@ def resize_image(
     return image.astype(image_dtype), window, scale, padding, None
 
 
+def _nearest_index(src: int, dst: int) -> np.ndarray:
+    """Source index of each of ``dst`` outputs for cv2.INTER_NEAREST:
+    ``floor(i * (1 / (dst / src)))`` in f64, clamped to the last pixel."""
+    inv = 1.0 / (dst / src)
+    return np.minimum(np.floor(np.arange(dst) * inv).astype(np.int64), src - 1)
+
+
+def resize_mask(mask: np.ndarray, scale: float, padding) -> np.ndarray:
+    """Nearest-neighbour mask resize by ``scale``, then the image's padding
+    (as ``utils/image.py::resize_mask``, with cv2's nearest rule)."""
+    h, w = mask.shape[:2]
+    out = mask[_nearest_index(h, round(h * scale))][:, _nearest_index(w, round(w * scale))]
+    return np.pad(out, padding[: out.ndim], mode="constant", constant_values=0)
+
+
+def minimize_mask(bbox: np.ndarray, mask: np.ndarray, mini_shape) -> np.ndarray:
+    """Crop each instance mask [H, W, N] to its pixel bbox and resize it to
+    ``mini_shape`` bilinearly, rounding to bool (as
+    ``utils/image.py::minimize_mask``). The bilinear sum can land on 0.5
+    and then round to the other side than cv2's."""
+    mini = np.zeros(tuple(mini_shape) + (mask.shape[-1],), dtype=bool)
+    for i in range(mask.shape[-1]):
+        y1, x1, y2, x2 = bbox[i][:4]
+        m = mask[y1:y2, x1:x2, i].astype(bool)
+        if m.size == 0:
+            raise ValueError("Invalid bounding box with area of zero")
+        mini[:, :, i] = np.around(resize(m, mini_shape)).astype(bool)
+    return mini
+
+
 def paste_mask(mask: np.ndarray, bbox, frame: np.ndarray) -> None:
     """Resize a small float mask to ``bbox`` (pixel y1, x1, y2, x2),
     threshold it at 0.5 and write it into the bool ``frame`` [H, W]."""

@@ -8,15 +8,23 @@ Run from the repository root:
 Phases, one line each:
 
 1. device: the card's name and power limit; TF32 is switched off;
-2. build: the CUDA kernels, compiled from ``caesar_mrcnn_tpu_torch/csrc``;
+2. build: the CUDA kernels, compiled from ``caesar_mrcnn_tpu_torch/csrc``
+   (one nvcc per source, in parallel);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the detect path gives it, with median times;
+   the shapes the detect and train paths give it, with median times;
 4. slice: the tiled detect path (``Detector.dispatch_tiles`` / ``collect``,
    two batches in flight) over 16 tiles of 512^2 read from a seeded 2048^2
    FITS mosaic, at the flagship's full width (ResNet-101, FPN 256, batch 8,
    bf16, 6000 pre-NMS / 1000 post-NMS / 100 detections);
 5. parity: one tile at f32 through the card's detector and the same
-   detector on the CPU, where the plain versions run.
+   detector on the CPU, where the plain versions run;
+6. train: 20 Adam steps of the training flagship (ResNet-101, FPN 256,
+   256^2, batch 8, bf16, 2000 post-NMS proposals, 512 ROIs, 300 GT) on a
+   seeded 16-image FITS dataset read through ``SourceDataset`` and the
+   port's ``TrainingPipeline`` (compact wire);
+7. train parity: one f32 SGD step of ResNet-101 at batch 2, 128^2, on the
+   card and on the CPU from the same weights, batch and priorities: losses
+   and gradients.
 
 Then one JSON line with the kernels' record, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -66,9 +74,22 @@ def median_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def train_config(**overrides):
+    """The training flagship of ``bench_train.py``: ResNet-101, 256^2,
+    batch 8, bf16, Adam, 300 GT, full-size masks, 512 ROIs."""
+    from caesar_mrcnn_tpu_torch.host import detector_config
+
+    kw = dict(
+        num_classes=4, class_names=CLASS_NAMES, image_min_dim=256, image_max_dim=256,
+        images_per_device=8, compute_dtype="bfloat16", optimizer="adam",
+    )
+    kw.update(overrides)
+    return detector_config(**kw)
+
+
 def flagship_config(**overrides):
     """The serving flagship: ResNet-101, 512^2, batch 8, bf16, 6000/1000."""
-    from caesar_mrcnn_tpu.config import detector_config
+    from caesar_mrcnn_tpu_torch.host import detector_config
 
     kw = dict(
         num_classes=4, class_names=CLASS_NAMES, image_min_dim=512,
@@ -88,6 +109,21 @@ def settle_random_weights(model) -> None:
     with torch.no_grad():
         model.backbone.conv1.weight.mul_(1.0 / 255.0)
         model.classifier_head.mrcnn_class_logits.bias[0] = -3.0
+
+
+def randomize_affine(model, seed: int = SEED) -> None:
+    """Nonzero biases and batch norms (scale 0.5..1.5, var 0.5..2, the rest
+    +-0.1, seeded), so that no tensor starts at 0 and a parameter's
+    relative difference after a step measures its gradient's."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            leaf = name.rsplit(".", 1)[1]
+            if leaf != "weight":
+                low, high = {"scale": (0.5, 1.5), "var": (0.5, 2.0)}.get(leaf, (-0.1, 0.1))
+                t.copy_(torch.from_numpy(rng.uniform(low, high, tuple(t.shape)).astype(np.float32)))
 
 
 # ------------------------------------------------------------------ kernels
@@ -141,7 +177,9 @@ def check_nms(dev, rng, card_name: str) -> dict:
     from caesar_mrcnn_tpu_torch.ops import nms as N
 
     rec = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    for b, n, thr, max_out, classes in ((8, 6000, 0.9, 1000, False), (8, 1000, 0.3, 300, True)):
+    # detect: RPN (1000 kept) and per-class detection NMS; train: RPN (2000 kept)
+    for b, n, thr, max_out, classes in ((8, 6000, 0.9, 1000, False), (8, 1000, 0.3, 300, True),
+                                        (8, 6000, 0.9, 2000, False)):
         boxes, scores = (torch.from_numpy(a).to(dev) for a in nms_case(rng, b, n, classes))
 
         def kernel():
@@ -170,29 +208,37 @@ def check_roi_align(dev, rng, card_name: str) -> dict:
     from caesar_mrcnn_tpu_torch.ops import roi_align as R
 
     b, c = 8, 256
-    levels = [
-        torch.from_numpy(rng.randn(b, s, s, c).astype(np.float32)).to(dev, torch.bfloat16)
-        for s in (128, 64, 32, 16)
-    ]
     rec = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    for n, pool in ((1000, 7), (100, 14)):
+    # detect: 512^2, 1000 proposals at 7 and 100 detections at 14;
+    # train: 256^2, 512 ROIs at 7 and the 168 positive slots at 14
+    cases = [(512, n, pool) for n, pool in ((1000, 7), (100, 14))]
+    cases += [(256, n, pool) for n, pool in ((512, 7), (168, 14))]
+    levels = {}
+    for image, n, pool in cases:
+        if image not in levels:
+            levels[image] = [
+                torch.from_numpy(rng.randn(b, s, s, c).astype(np.float32)).to(dev, torch.bfloat16)
+                for s in (image // 4, image // 8, image // 16, image // 32)
+            ]
+        lv = levels[image]
         boxes = torch.from_numpy(roi_case(rng, b, n)).to(dev)
 
         def kernel():
-            return R.roi_align(levels, boxes, (512, 512), pool)
+            return R.roi_align(lv, boxes, (image, image), pool)
 
         def plain():
-            return R.roi_align_plain(levels, boxes, (512, 512), pool)
+            return R.roi_align_plain(lv, boxes, (image, image), pool)
 
         k, p = kernel(), plain()
         torch.cuda.synchronize()
         diff = (k.float() - p.float()).abs()
         ulp = bf16_ulp(torch.maximum(k.float().abs(), p.float().abs()))
         if not bool((diff <= ulp).all()):
-            raise AssertionError(f"roi_align N={n} pool={pool}: beyond 1 bf16 ulp, max abs {float(diff.max())}")
+            raise AssertionError(f"roi_align {image}^2 N={n} pool={pool}: beyond 1 bf16 ulp, "
+                                 f"max abs {float(diff.max())}")
         err = float(diff.max())
         ms, plain_ms = median_ms(kernel, 20), median_ms(plain, 5)
-        print(f"kernels: roi_align bf16 B={b} N={n} pool={pool} C={c}: within 1 bf16 ulp "
+        print(f"kernels: roi_align bf16 {image}^2 B={b} N={n} pool={pool} C={c}: within 1 bf16 ulp "
               f"(max abs {err:.3g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events) [{card_name}]")
         rec["err"] = max(rec["err"], err)
         rec["ms"] += ms
@@ -200,12 +246,93 @@ def check_roi_align(dev, rng, card_name: str) -> dict:
     return rec
 
 
+def check_roi_align_backward(dev, rng, card_name: str) -> dict:
+    """The backward kernel against the f64 plain gradient at the two
+    training shapes, bf16 and f32. Tolerance, per element: f32 within 1e-5
+    of the element's absolute-contribution sum (atomics sum in any order);
+    bf16 within 2 bf16 ulp of the f64 value plus that f32 term (the kernel
+    sums in f32 and rounds once)."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch.ops import roi_align as R
+
+    b, c = 8, 256
+    shapes = [(s, s) for s in (64, 32, 16, 8)]
+    rec = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    for n, pool in ((512, 7), (168, 14)):
+        boxes = torch.from_numpy(roi_case(rng, b, n)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            grad = torch.from_numpy(rng.randn(b, n, pool, pool, c).astype(np.float32)).to(dev, dtype)
+
+            def kernel():
+                return R.roi_align_backward(grad, boxes, shapes, (256, 256))
+
+            def plain():
+                return R.roi_align_backward_plain(grad, boxes, shapes, (256, 256))
+
+            got = kernel()
+            ref = R.roi_align_backward_plain(grad.double(), boxes, shapes, (256, 256))
+            mag = R.roi_align_backward_plain(grad.double().abs(), boxes, shapes, (256, 256))
+            torch.cuda.synchronize()
+            err = 0.0
+            for lvl, (g, r, m) in enumerate(zip(got, ref, mag)):
+                diff = (g.double() - r).abs()
+                tol = 1e-5 * m
+                if dtype == torch.bfloat16:
+                    tol = tol + 2 * bf16_ulp(r.abs().float()).double()
+                if not bool((diff <= tol).all()):
+                    raise AssertionError(f"roi_align_backward {dtype} N={n} pool={pool} P{lvl + 2}: "
+                                         f"max abs diff {float(diff.max())}")
+                err = max(err, float(diff.max()))
+            ms, plain_ms = median_ms(kernel, 10), median_ms(plain, 3)
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            print(f"kernels: roi_align_backward {name} B={b} N={n} pool={pool} C={c}: within tolerance of the "
+                  f"f64 plain gradient (max abs {err:.3g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+                  f"(median, CUDA events) [{card_name}]")
+            rec["err"] = max(rec["err"], err)
+            rec["ms"] += ms
+            rec["plain_ms"] += plain_ms
+    return rec
+
+
+def check_crop_and_resize(dev, rng, card_name: str) -> dict:
+    """crop_and_resize against its plain version at the training flagship's
+    shapes (f32 masks [8, 256, 256, 300], 168 positive ROIs): bit-equal."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch.ops import roi_align as R
+
+    b, h, g, r = 8, 256, 300, 168
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    masks = (torch.rand((b, h, h, g), generator=gen, device=dev) > 0.7).float()
+    boxes = roi_case(rng, b, r)
+    boxes[:, 3] = [-0.1, 0.2, 0.5, 1.2]  # partly outside the map
+    boxes = torch.from_numpy(boxes).to(dev)
+    assign = torch.from_numpy(rng.randint(0, g, (b, r))).to(dev)
+
+    def kernel():
+        return R.crop_and_resize(masks, boxes, assign, (28, 28))
+
+    def plain():
+        return R.crop_and_resize_plain(masks, boxes, assign, (28, 28))
+
+    k, p = kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(k, p):
+        raise AssertionError(f"crop_and_resize: {int((k != p).sum())} values differ from the plain version, "
+                             f"max abs {float((k - p).abs().max())}")
+    ms, plain_ms = median_ms(kernel, 20), median_ms(plain, 5)
+    print(f"kernels: crop_and_resize f32 masks [{b},{h},{h},{g}] R={r} 28x28: bit-equal; kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms (median, CUDA events) [{card_name}]")
+    return {"err": 0.0, "ms": ms, "plain_ms": plain_ms}
+
+
 # -------------------------------------------------------------------- slice
 
 
 def write_mosaic(path: str, n: int = 2048, seed: int = SEED) -> None:
     """Radio-looking n x n FITS mosaic: noise plus gaussian sources."""
-    from caesar_mrcnn_tpu.utils.fits import write_fits
+    from caesar_mrcnn_tpu_torch.host import write_fits
 
     rng = np.random.RandomState(seed)
     img = rng.normal(0.0, 0.05, (n, n)).astype(np.float32)
@@ -222,8 +349,7 @@ def write_mosaic(path: str, n: int = 2048, seed: int = SEED) -> None:
 
 
 def read_tiles(path: str, n: int, size: int) -> np.ndarray:
-    from caesar_mrcnn_tpu.utils.fits import read_tile_u8
-    from caesar_mrcnn_tpu.utils.tiles import generate_tiles
+    from caesar_mrcnn_tpu_torch.host import generate_tiles, read_tile_u8
 
     tiles = [read_tile_u8(path, x1, x2, y1, y2)
              for x1, x2, y1, y2 in generate_tiles(0, n, 0, n, size, size)]
@@ -328,6 +454,188 @@ def check_parity(card_name: str) -> None:
         raise AssertionError(f"unmolded card/CPU results differ: {res}")
 
 
+# -------------------------------------------------------------------- train
+
+
+def write_train_dataset(root: str, n_images: int = 16, size: int = 256, objects: int = 12,
+                        seed: int = SEED) -> str:
+    """Seeded FITS training set in ``SourceDataset``'s json layout: noise
+    plus ``objects`` elliptical gaussian sources per image, each with its
+    own FITS mask (8..40 px across, the density of ``bench_train.py``).
+    Returns the list of json descriptors, one per line."""
+    from caesar_mrcnn_tpu_torch.host import write_fits
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    paths = []
+    for i in range(n_images):
+        img = rng.normal(0.0, 0.05, (size, size)).astype(np.float32)
+        objs = []
+        for j in range(objects):
+            cy, cx = rng.uniform(24, size - 24, 2)
+            ry, rx = rng.uniform(4, 20, 2)
+            r2 = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2
+            img += rng.uniform(1.0, 20.0) * np.exp(-r2)
+            mask_path = os.path.join(root, f"img{i}_obj{j}.fits")
+            write_fits((r2 <= 1.0).astype(np.float32), mask_path)
+            objs.append({"mask": mask_path, "class": CLASS_NAMES[1 + rng.randint(3)]})
+        img_path = os.path.join(root, f"img{i}.fits")
+        write_fits(img, img_path)
+        paths.append(os.path.join(root, f"img{i}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump({"img": img_path, "objs": objs}, f)
+    return paths
+
+
+def load_train_dataset(paths):
+    from caesar_mrcnn_tpu_torch.host import SourceDataset
+
+    ds = SourceDataset()
+    ds.set_class_dict({name: i for i, name in enumerate(CLASS_NAMES) if i})
+    for p in paths:
+        if ds.load_data_from_json_file(p) != 0:
+            raise RuntimeError(f"dataset: cannot load {p}")
+    ds.prepare()
+    return ds
+
+
+def check_train(ds, card_name: str) -> dict:
+    """20 Adam steps of the training flagship through the pipeline."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch import weights as W
+    from caesar_mrcnn_tpu_torch.data.generator import TrainingPipeline
+    from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN, forward_train
+    from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
+    from caesar_mrcnn_tpu_torch.ops.roi_align import crop_and_resize, roi_align, roi_align_backward
+    from caesar_mrcnn_tpu_torch.train import trainer as T
+
+    steps = 20
+    cfg = train_config()
+    pipe = TrainingPipeline(ds, cfg, seed=SEED, augmentation=True, cache_bytes=1 << 30)
+    batches = pipe.batches()
+    model = MaskRCNN(cfg)
+    W.init_weights(model, torch.Generator().manual_seed(SEED))
+    settle_random_weights(model)
+    model.to("cuda")
+    opt = T.make_optimizer(cfg, model, "all")
+    step = T.make_train_step(model, opt, pipe.anchors_normalized())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (nms_padded, roi_align, roi_align_backward, crop_and_resize)
+    for k in counters:
+        k.launches = 0
+    events, losses = [], []
+    t = time.perf_counter()
+    for _ in range(steps):
+        batch = T.batch_to_device(next(batches), "cuda")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(batch, generator=gen))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {"nms": nms_padded.launches, "roi_align": roi_align.launches,
+                "roi_align_backward": roi_align_backward.launches, "crop_and_resize": crop_and_resize.launches}
+    expected = {"nms": steps, "roi_align": 2 * steps, "roi_align_backward": 2 * steps, "crop_and_resize": steps}
+    if launches != expected:
+        raise AssertionError(f"train launches {launches}, expected {expected} (1, 2, 2, 1 per step)")
+    peak = torch.cuda.max_memory_allocated()
+    totals = [float(l["total_loss"]) for l in losses]
+    for i, l in enumerate(losses):
+        bad = [k for k, v in l.items() if not bool(torch.isfinite(v))]
+        if bad:
+            raise AssertionError(f"train step {i}: non-finite {bad}")
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in events[2:])
+
+    # the targets of the last batch: rounded masks in {0, 1}, only on positives
+    with torch.no_grad():
+        b = T.mold_batch(batch, cfg)
+        out = forward_train(model, b["images"], b["gt_class_ids"], b["gt_boxes"], b["gt_masks"],
+                            torch.from_numpy(pipe.anchors_normalized()).cuda(),
+                            torch.tensor(cfg.rpn_bbox_std_dev, device="cuda"), generator=gen)
+    tm = out.target_masks
+    positive = (out.target_class_ids > 0).float()
+    if not bool(((tm == 0) | (tm == 1)).all()) or not bool((tm.flatten(2).amax(2) <= positive).all()):
+        raise AssertionError("target masks outside {0, 1} or set on a non-positive ROI")
+    n_pos = int(positive.sum())
+    print(f"train: {steps} Adam steps, ResNet-101 256^2 batch 8 bf16, 16 FITS images x 12 objects "
+          f"through TrainingPipeline (compact wire); launches {launches}; {n_pos} positive ROIs in the "
+          f"last batch [{card_name}]")
+    print(f"train: step {step_ms:.2f} ms (median of steps 3-{steps}, CUDA events), "
+          f"{cfg.batch_size * 1000.0 / step_ms:.2f} img/s device-bound; {steps * cfg.batch_size / wall:.2f} img/s "
+          f"with the host pipeline ({wall:.2f} s for {steps} steps); peak device memory "
+          f"{peak / 2**30:.2f} GiB; total_loss first {totals[0]:.4f}, last {totals[-1]:.4f} [{card_name}]")
+    print("train: losses of the last step " + json.dumps({k: round(float(v), 5) for k, v in losses[-1].items()}))
+    return launches
+
+
+def check_train_parity(ds, card_name: str) -> None:
+    """One f32 SGD step of ResNet-101, batch 2, 128^2, at the flagship's
+    learning rate, on the card and on the CPU: same weights (nonzero biases
+    and batch norms), batch (given ROIs, so that near-tied proposals cannot
+    fork the targets) and priorities, TF32 off.
+
+    Held: the five losses within 1e-4 relative; each parameter's gradient
+    within a relative L2 error (``|g_card - g_cpu| / |g_cpu|`` per tensor)
+    of 1e-3 in the FPN and the heads and 1e-2 in the backbone. The
+    gradient, not the updated weight, so that neither the learning rate
+    nor the weight's size hides a fault. The bounds differ because the
+    backbone's gradient passes some hundred ReLUs, where f32 rounding flips
+    pre-activations near 0: the CPU against itself at another thread count
+    differs there by up to 1.1e-3, and the FPN, next to the ROIAlign
+    gradient, by 2e-5 card against CPU (an H100 80GB HBM3). On that card,
+    a backward kernel that drops one of its four taps moved the FPN's
+    gradients by 0.12, and one that loses the P3 level by 7e-3. SGD, because Adam's first update is the sign of each
+    gradient element, which rounding decides for elements near zero."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch import weights as W
+    from caesar_mrcnn_tpu_torch.data.generator import TrainingPipeline
+    from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from caesar_mrcnn_tpu_torch.models.targets import sampling_width
+    from caesar_mrcnn_tpu_torch.train import trainer as T
+
+    cfg = train_config(image_min_dim=128, image_max_dim=128, images_per_device=2, compute_dtype="float32",
+                       optimizer="sgd", use_rpn_rois=False)
+    pipe = TrainingPipeline(ds, cfg, seed=SEED)
+    batch = next(pipe.batches())
+    width = sampling_width(batch["rois"].shape[1], cfg)
+    prio = tuple(torch.rand((2, width), generator=torch.Generator().manual_seed(SEED)) for _ in range(2))
+    init = MaskRCNN(cfg)
+    W.init_weights(init, torch.Generator().manual_seed(SEED))
+    randomize_affine(init)
+    settle_random_weights(init)
+    state = init.state_dict()
+    results = []
+    for device in ("cuda", "cpu"):
+        model = MaskRCNN(cfg)
+        model.load_state_dict(state)
+        model.to(device)
+        step = T.make_train_step(model, T.make_optimizer(cfg, model, "all"), pipe.anchors_normalized())
+        losses = step(T.batch_to_device(batch, device), priorities=tuple(p.to(device) for p in prio))
+        results.append(({k: float(v) for k, v in losses.items()},
+                        {k: v.grad.cpu().double() for k, v in model.named_parameters()}))
+    (gl, gg), (cl, cg) = results
+    loss_rel = max(abs(gl[k] - cl[k]) / max(abs(cl[k]), 1e-12) for k in cl)
+    bounds = {"backbone": 1e-2, "FPN and heads": 1e-3}
+    worst = {group: (0.0, "") for group in bounds}
+    for k, ref in cg.items():
+        rel = float((gg[k] - ref).norm() / ref.norm().clamp_min(1e-30))
+        group = "backbone" if k.startswith("backbone.") else "FPN and heads"
+        worst[group] = max(worst[group], (rel, k))
+    print(f"train parity: one f32 SGD step (learning rate {cfg.learning_rate}), ResNet-101 batch 2 128^2, card vs "
+          f"CPU: losses max rel diff {loss_rel:.3g} (total {gl['total_loss']:.6f} / {cl['total_loss']:.6f}); "
+          "gradients' worst relative L2 error: "
+          + ", ".join(f"{group} {rel:.3g} ({k}; bound {bounds[group]:g})" for group, (rel, k) in worst.items())
+          + f" [{card_name}]")
+    if loss_rel > 1e-4 or any(worst[group][0] > bound for group, bound in bounds.items()):
+        raise AssertionError(f"train parity beyond its bounds: losses {gl} vs {cl}; gradients {worst}")
+
+
 def main() -> None:
     import torch
 
@@ -353,16 +661,27 @@ def main() -> None:
     rng = np.random.RandomState(SEED)
     nms = check_nms(dev, rng, card_name)
     roi = check_roi_align(dev, rng, card_name)
-    launches = check_slice(card_name)
+    roi_bwd = check_roi_align_backward(dev, rng, card_name)
+    crop = check_crop_and_resize(dev, rng, card_name)
+    torch.cuda.empty_cache()
+    detect = check_slice(card_name)
     check_parity(card_name)
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = load_train_dataset(write_train_dataset(tmp))
+        train = check_train(ds, card_name)
+        check_train_parity(ds, card_name)
+    print(f"launches: detect path {detect}, train path {train}")
+
+    def record(name, source, replaces, rec):
+        return {"name": name, "route": "cuda", "source": f"caesar_mrcnn_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": detect.get(name, 0) + train[name],
+                "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"]}
 
     kernels = [
-        {"name": "nms", "route": "cuda", "source": "caesar_mrcnn_tpu_torch/csrc/nms.cu",
-         "replaces": "caesar_mrcnn_tpu/ops/nms.py:96", "launches": launches["nms"],
-         "max_abs_err": nms["err"], "ms": nms["ms"], "plain_ms": nms["plain_ms"]},
-        {"name": "roi_align", "route": "cuda", "source": "caesar_mrcnn_tpu_torch/csrc/roi_align.cu",
-         "replaces": "caesar_mrcnn_tpu/ops/roi_align_pallas.py:175", "launches": launches["roi_align"],
-         "max_abs_err": roi["err"], "ms": roi["ms"], "plain_ms": roi["plain_ms"]},
+        record("nms", "nms.cu", "caesar_mrcnn_tpu/ops/nms.py:96", nms),
+        record("roi_align", "roi_align.cu", "caesar_mrcnn_tpu/ops/roi_align_pallas.py:175", roi),
+        record("roi_align_backward", "roi_align.cu", "caesar_mrcnn_tpu/ops/roi_align.py:114", roi_bwd),
+        record("crop_and_resize", "crop_and_resize.cu", "caesar_mrcnn_tpu/ops/roi_align.py:43", crop),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

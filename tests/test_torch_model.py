@@ -24,6 +24,7 @@ from caesar_mrcnn_tpu.utils.anchors import get_anchors
 from caesar_mrcnn_tpu_torch import weights as W
 from caesar_mrcnn_tpu_torch.models.backbone import ResNet
 from caesar_mrcnn_tpu_torch.models.detection import refine_detections
+from caesar_mrcnn_tpu_torch.models.layers import FrozenBatchNorm
 from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
 from caesar_mrcnn_tpu_torch.models.proposals import generate_proposals
 from caesar_mrcnn_tpu_torch.utils import boxes as tboxes
@@ -105,7 +106,7 @@ def _nchw(a):
 
 
 def test_converter_layouts_and_deconv_flip():
-    """HWIO -> OIHW, Dense (in, out) -> (out, in), folded batch norm, and
+    """HWIO -> OIHW, Dense (in, out) -> (out, in), frozen batch norm, and
     the ConvTranspose kernel flipped in both spatial axes."""
     rng = np.random.RandomState(2)
     x = rng.randn(2, 5, 6, 3).astype(np.float32)
@@ -134,7 +135,11 @@ def test_converter_layouts_and_deconv_flip():
     y = rng.randn(4, 7).astype(np.float32)
     ref = (y - stats["BatchNorm_0"]["mean"]) / np.sqrt(stats["BatchNorm_0"]["var"] + 1e-3)
     ref = ref * bn["BatchNorm_0"]["scale"] + bn["BatchNorm_0"]["bias"]
-    np.testing.assert_allclose(y * sd["bn.scale"].numpy() + sd["bn.shift"].numpy(), ref, rtol=1e-5, atol=1e-5)
+    bn_mod = FrozenBatchNorm(7)
+    bn_mod.load_state_dict({k[3:]: v for k, v in sd.items() if k.startswith("bn.")})
+    with torch.no_grad():
+        got = bn_mod(torch.from_numpy(y)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
 def test_custom_backbone_and_fpn(models, stages):

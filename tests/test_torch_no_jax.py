@@ -4,6 +4,7 @@ matplotlib. These tests hold the port (``caesar_mrcnn_tpu_torch`` and
 to a plain version where CUDA was asked for.
 """
 
+import ast
 import os
 import shutil
 import subprocess
@@ -15,7 +16,7 @@ import torch
 
 from caesar_mrcnn_tpu_torch.ops import _kernels
 from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
-from caesar_mrcnn_tpu_torch.ops.roi_align import roi_align
+from caesar_mrcnn_tpu_torch.ops.roi_align import crop_and_resize, roi_align, roi_align_backward
 
 torch.set_num_threads(2)
 
@@ -42,7 +43,7 @@ import caesar_mrcnn_tpu_torch as pkg
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 import chip_smoke
-from caesar_mrcnn_tpu.config import detector_config, inference_config
+from caesar_mrcnn_tpu_torch.host import detector_config, inference_config
 from caesar_mrcnn_tpu_torch.inference.detector import build_detector
 cfg = inference_config(detector_config(
     backbone="custom", image_min_dim=64, image_max_dim=64, num_classes=4,
@@ -54,6 +55,35 @@ assert len(res) == 1 and res[0]["masks"].shape[:2] == (64, 64)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in _Blocked.names)
 assert not loaded, loaded
 print("slice ok")
+"""
+
+TRAIN = """
+import tempfile
+import numpy as np
+import torch
+import caesar_mrcnn_tpu_torch.train.trainer as T
+import caesar_mrcnn_tpu_torch.data.generator as G
+import caesar_mrcnn_tpu_torch.models.targets as TT
+import caesar_mrcnn_tpu_torch.train.checkpoints
+import chip_smoke
+from caesar_mrcnn_tpu_torch.host import detector_config
+from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+cfg = detector_config(
+    backbone="custom", image_min_dim=64, image_max_dim=64, num_classes=4, images_per_device=2,
+    class_names=chip_smoke.CLASS_NAMES, rpn_anchor_scales=(8, 16, 32, 64, 128), pre_nms_limit=128,
+    post_nms_rois_training=32, train_rois_per_image=16, rpn_train_anchors_per_image=32,
+    max_gt_instances=4, compute_dtype="float32")
+with tempfile.TemporaryDirectory() as tmp:
+    ds = chip_smoke.load_train_dataset(chip_smoke.write_train_dataset(tmp, n_images=2, size=64, objects=2))
+    pipe = G.TrainingPipeline(ds, cfg, seed=0)
+    batch = next(pipe.batches())
+model = MaskRCNN(cfg)
+step = T.make_train_step(model, T.make_optimizer(cfg, model), pipe.anchors_normalized())
+losses = step(T.batch_to_device(batch, "cpu"), generator=torch.Generator().manual_seed(0))
+assert all(bool(torch.isfinite(v)) for v in losses.values()), losses
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in _Blocked.names)
+assert not loaded, loaded
+print("train ok")
 """
 
 
@@ -69,6 +99,30 @@ def test_port_imports_and_runs_without_jax_cv2_matplotlib():
     proc = _run(["-c", BLOCK_IMPORTS + SLICE], cwd=REPO, env_extra={"PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "slice ok" in proc.stdout
+
+
+def test_training_path_imports_and_steps_without_jax_cv2_matplotlib():
+    """trainer, generator and targets import, and one train step runs, with
+    jax, flax, optax, orbax, cv2 and matplotlib blocked."""
+    proc = _run(["-c", BLOCK_IMPORTS + TRAIN], cwd=REPO, env_extra={"PYTHONPATH": str(REPO)})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "train ok" in proc.stdout
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py drives the port alone: every module it imports is the
+    standard library, numpy, torch or ``caesar_mrcnn_tpu_torch``."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    assert "caesar_mrcnn_tpu_torch.host" in names
+    tops = {n.split(".")[0] for n in names}
+    foreign = tops - set(sys.stdlib_module_names) - {"numpy", "torch", "caesar_mrcnn_tpu_torch"}
+    assert not foreign, foreign
 
 
 def _assert_refused(proc):
@@ -95,6 +149,11 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     levels = [torch.zeros(2, s, s, 8, device="meta") for s in (16, 8, 4, 2)]
     with pytest.raises(RuntimeError, match="no kernel"):
         roi_align(levels, boxes, (64, 64), 7)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        roi_align_backward(torch.zeros(2, 16, 7, 7, 8, device="meta"), boxes, [(16, 16)] * 4, (64, 64))
+    masks = torch.zeros(2, 16, 16, 3, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        crop_and_resize(masks, boxes, torch.zeros(2, 16, dtype=torch.long, device="meta"), (4, 4))
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
