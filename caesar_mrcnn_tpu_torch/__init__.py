@@ -6,14 +6,26 @@ masks) and its training path (``TrainingPipeline`` -> ``forward_train`` ->
 losses -> backward -> optimizer) with PyTorch on an NVIDIA Hopper card.
 NMS, multilevel ROIAlign and its gradient, and the mask-target
 crop_and_resize are hand-written CUDA kernels (``csrc/``), built at first
-use; every other stage is plain PyTorch. Host modules that import no JAX
-(``config``, ``data.dataset``, ``data.augment``, ``utils.anchors``,
-``utils.fits``, ``utils.zscale``, ``utils.tiles``, ``native``) are imported
-from the JAX package, not copied; ``caesar_mrcnn_tpu_torch.host`` re-exports
-the ones a caller of the port needs, so that the caller imports only this
-package.
+use; every other stage is plain PyTorch.
 
-This package imports no jax, flax, optax, orbax, cv2 or matplotlib.
+The host modules it needs keep the JAX package's module paths as copies of
+their own (``config``, ``data.dataset``, ``data.augment``,
+``utils.anchors``, ``utils.fits``, ``utils.zscale``, ``utils.tiles``,
+``models.debug_rois`` and the C++ host library ``native``), so this package
+imports nothing of ``caesar_mrcnn_tpu``, and no jax, flax, optax, orbax,
+cv2 or matplotlib.
 """
 
-__version__ = "0.2.0"
+import logging
+
+__version__ = "0.3.0"
+
+# The package logger (the JAX package's, under this package's name).
+logger = logging.getLogger("caesar_mrcnn_tpu_torch")
+if not logger.handlers:
+    _h = logging.StreamHandler()
+    _h.setFormatter(
+        logging.Formatter("%(asctime)s %(levelname)s - %(message)s", "%Y-%m-%d %H:%M:%S")
+    )
+    logger.addHandler(_h)
+    logger.setLevel(logging.INFO)

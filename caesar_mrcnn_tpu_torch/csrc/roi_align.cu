@@ -162,26 +162,99 @@ __global__ void roi_align_kernel(Levels lv, int c, int n,
 }
 
 // Backward: the VJP of roi_align_kernel with respect to the levels (boxes
-// carry no gradient). Same grid and the same taps and weights as the
-// forward (box_taps, corners); each inside sample scatter-adds
-// grad * w_tap into its four taps with f32 atomicAdd on an f32 scratch copy
-// of the level (grads: [B, H_l, W_l, C] f32 per level, zeroed by the
-// caller). Taps the forward read as 0 (samples outside the map) get
-// nothing. Atomics make the order of the sums, and so the f32 rounding,
-// vary from run to run.
+// carry no gradient), into f32 level gradients [B, H_l, W_l, C] zeroed by
+// the caller, with the forward's taps and weights (box_taps). Taps the
+// forward read as 0 (samples outside the map) get nothing.
 //
-// What bounds it on the card: f32 atomics. At the training shapes (8 x 512
-// boxes x 7x7 and 8 x 168 x 14x14, C = 256) a call issues 205M or 270M
-// atomicAdds, and coarse levels are contended (a P5 pixel can receive
-// thousands of them); neighbouring threads add to neighbouring
-// channels, so each warp's atomics fall on consecutive addresses.
+// Replaces an earlier design that kept the forward's grid and issued eight
+// scalar f32 atomicAdds to device memory per thread per sample (205M per
+// call at 8 x 512 boxes x 7x7 x 256 channels, 270M at 8 x 168 x 14x14).
+// Those serialise at L2: the training path's ROIs are small and go to P2,
+// where a 16-pixel box is 4 pixels wide and its 49 samples land on about
+// 5x5 pixels, so the same thread adds to the same address again and again.
+//
+// What bounds it on the card: memory in principle: grad_out (103 MB at pool
+// 7 in bf16) read once and the gradients written once, ~0.04 ms. A first
+// redesign merged the taps of a box in shared memory with f32 atomicAdd,
+// which sm_90 compiles to a compare-and-swap loop (ATOMS.CAST.SPIN). This
+// design has no atomics in shared memory and is 5-33% faster than that
+// one, but still 0.25-0.35 ms at the training shapes (PERF.md). What
+// holds it there is not measured yet: each footprint pixel of each box
+// still reaches device memory through a float4 atomic, and the training
+// ROIs overlap (about 40 per source).
+//
+// Design: the bilinear weight of a tap is a product of a row weight and a
+// column weight, so the gradient of a box is two small sums, each written
+// by the one thread that owns it, with no atomics in shared memory.
+//  - One block per box, 256 threads. The block finds the box's footprint
+//    on its level (the bounding rows and columns of its inside taps) and,
+//    for each footprint row and column, the range of samples whose taps
+//    touch it.
+//  - Column pass: for each sample row, footprint column and four channels,
+//    one thread sums the row's samples that touch the column, weighted by
+//    their column weights, reading grad_out with 8- or 16-byte loads
+//    (lanes on neighbouring channels), into a shared tile [pool][fw][4 ch].
+//  - Row pass: for each footprint pixel and four channels, one thread sums
+//    the tile rows that touch the pixel's row, weighted by their row
+//    weights, and adds the result to device memory once, with one 16-byte
+//    vector atomicAdd (float4, sm_90).
+//  - Channels go in passes of as many as the 40 KB tile holds. A box whose
+//    footprint is wider or taller than 2 * pool has few repeated taps: it
+//    takes a direct path, each thread adding four channels of one sample
+//    to its four taps with float4 atomics.
+// Boxes add to device memory in any order, so the f32 rounding varies from
+// run to run; and the separable sums round differently from the forward's
+// tap weights (products of the two), well inside the test's 1e-5 of each
+// element's absolute-contribution sum.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdTile = 10240;  // floats of the column-pass tile (40 KB)
+
+// Four consecutive channels as floats (16-byte or 8-byte load).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float4 scale4(float4 v, float k) {
+  return make_float4(__fmul_rn(v.x, k), __fmul_rn(v.y, k), __fmul_rn(v.z, k), __fmul_rn(v.w, k));
+}
+
+__device__ __forceinline__ void acc4(float4& a, float4 v, float k) {
+  a.x = __fadd_rn(a.x, __fmul_rn(v.x, k));
+  a.y = __fadd_rn(a.y, __fmul_rn(v.y, k));
+  a.z = __fadd_rn(a.z, __fmul_rn(v.z, k));
+  a.w = __fadd_rn(a.w, __fmul_rn(v.w, k));
+}
+
+__device__ __forceinline__ void add4(float* p, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(p), v);
+}
+
+// The weight sample tap t gives pixel v along its axis: 1 - w at tap 0, w
+// at tap 1, their sum where both taps are v (clamped at the border).
+__device__ __forceinline__ float axis_weight(const Tap& t, int v) {
+  float k = 0.0f;
+  if (t.lo == v) k = __fsub_rn(1.0f, t.w);
+  if (t.hi == v) k = __fadd_rn(k, t.w);
+  return k;
+}
+
+// grid B*N, block kBwdThreads.
 template <typename T>
-__global__ void roi_align_backward_kernel(Levels grads, int c, int n,
-                                          const float* __restrict__ boxes,
-                                          const int32_t* __restrict__ levels,
-                                          int pool,
-                                          const T* __restrict__ grad_out) {
+__global__ void __launch_bounds__(kBwdThreads)
+roi_align_backward_kernel(Levels grads, int c, int n,
+                          const float* __restrict__ boxes,
+                          const int32_t* __restrict__ levels, int pool,
+                          const T* __restrict__ grad_out) {
   __shared__ Tap taps[2][kMaxPool];
+  __shared__ __align__(16) float4 tile[kBwdTile / 4];  // [pool][fw][channels / 4]
+  __shared__ int span[4];  // first and last tap row, first and last tap column
+  __shared__ int2 touch[2][2 * kMaxPool];  // per footprint row / column: samples [x, y) touching it
 
   const int box = blockIdx.x;
   const int b = box / n;
@@ -191,41 +264,104 @@ __global__ void roi_align_backward_kernel(Levels grads, int c, int n,
   float* g = static_cast<float*>(const_cast<void*>(grads.ptr[level])) +
              (size_t)b * h * w * c;
   box_taps(taps, boxes + (size_t)box * 4, h, w, pool);
-
-  const T* go = grad_out + (size_t)box * pool * pool * c;
-  const int pairs = c >> 1;
-  for (int py = 0; py < pool; ++py) {
-    const Tap ty = taps[0][py];
-    if (!ty.inside) continue;
-    float* row0 = g + (size_t)ty.lo * w * c;
-    float* row1 = g + (size_t)ty.hi * w * c;
-    for (int px = 0; px < pool; ++px) {
-      const Tap tx = taps[1][px];
-      if (!tx.inside) continue;
-      const Corners k = corners(ty.w, tx.w);
-      const size_t x0 = (size_t)tx.lo * c;
-      const size_t x1 = (size_t)tx.hi * c;
-      const T* src = go + ((size_t)py * pool + px) * c;
-      for (int q = threadIdx.x; q < pairs; q += blockDim.x) {
-        const int ch = q << 1;
-        const float2 d = Pair<T>::to_float2(Pair<T>::load(src + ch));
-        atomicAdd(row0 + x0 + ch, __fmul_rn(d.x, k.w00));
-        atomicAdd(row0 + x0 + ch + 1, __fmul_rn(d.y, k.w00));
-        atomicAdd(row0 + x1 + ch, __fmul_rn(d.x, k.w01));
-        atomicAdd(row0 + x1 + ch + 1, __fmul_rn(d.y, k.w01));
-        atomicAdd(row1 + x0 + ch, __fmul_rn(d.x, k.w10));
-        atomicAdd(row1 + x0 + ch + 1, __fmul_rn(d.y, k.w10));
-        atomicAdd(row1 + x1 + ch, __fmul_rn(d.x, k.w11));
-        atomicAdd(row1 + x1 + ch + 1, __fmul_rn(d.y, k.w11));
+  if (threadIdx.x < 2) {
+    int lo = 0x7fffffff, hi = -1;
+    for (int p = 0; p < pool; ++p) {
+      const Tap t = taps[threadIdx.x][p];
+      if (t.inside) {
+        lo = min(lo, t.lo);
+        hi = max(hi, t.hi);
       }
     }
+    span[2 * threadIdx.x] = lo;
+    span[2 * threadIdx.x + 1] = hi;
+  }
+  __syncthreads();
+  if (span[1] < 0 || span[3] < 0) return;  // no sample inside the map
+  const int y0 = span[0], x0 = span[2];
+  const int fh = span[1] - y0 + 1, fw = span[3] - x0 + 1;
+  const T* go = grad_out + (size_t)box * pool * pool * c;
+
+  if (fh > 2 * pool || fw > 2 * pool) {  // direct path
+    const int quads = c >> 2;
+    const int samples = pool * pool;
+    for (int i = threadIdx.x; i < samples * quads; i += blockDim.x) {
+      const int s = i / quads;
+      const int ch = (i - s * quads) << 2;
+      const Tap ty = taps[0][s / pool];
+      const Tap tx = taps[1][s % pool];
+      if (!(ty.inside && tx.inside)) continue;
+      const Corners k = corners(ty.w, tx.w);
+      const float4 d = load4(go + (size_t)s * c + ch);
+      float* row0 = g + (size_t)ty.lo * w * c + ch;
+      float* row1 = g + (size_t)ty.hi * w * c + ch;
+      add4(row0 + (size_t)tx.lo * c, scale4(d, k.w00));
+      add4(row0 + (size_t)tx.hi * c, scale4(d, k.w01));
+      add4(row1 + (size_t)tx.lo * c, scale4(d, k.w10));
+      add4(row1 + (size_t)tx.hi * c, scale4(d, k.w11));
+    }
+    return;
+  }
+
+  for (int k = threadIdx.x; k < fh + fw; k += blockDim.x) {
+    const int axis = k < fh ? 0 : 1;
+    const int v = axis == 0 ? y0 + k : x0 + k - fh;
+    int first = pool, end = 0;
+    for (int p = 0; p < pool; ++p) {
+      const Tap t = taps[axis][p];
+      if (t.inside && (t.lo == v || t.hi == v)) {
+        first = min(first, p);
+        end = p + 1;
+      }
+    }
+    touch[axis][axis == 0 ? k : k - fh] = make_int2(first, end);
+  }
+  __syncthreads();
+
+  // channels per pass: a multiple of 4 that the tile holds (fw <= 2 * pool)
+  const int cpass = min(c, (kBwdTile / (pool * fw)) & ~3);
+  for (int c0 = 0; c0 < c; c0 += cpass) {
+    const int quads = min(cpass, c - c0) >> 2;
+    for (int i = threadIdx.x; i < pool * fw * quads; i += blockDim.x) {  // column pass
+      const int q = i % quads;
+      const int r = i / quads;
+      const int x = r % fw, py = r / fw;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (taps[0][py].inside) {
+        const T* src = go + (size_t)py * pool * c + c0 + (q << 2);
+        const int2 rg = touch[1][x];
+        for (int p = rg.x; p < rg.y; ++p) {
+          const Tap t = taps[1][p];
+          const float k = t.inside ? axis_weight(t, x0 + x) : 0.0f;
+          if (k != 0.0f) acc4(acc, load4(src + (size_t)p * c), k);
+        }
+      }
+      tile[i] = acc;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < fh * fw * quads; i += blockDim.x) {  // row pass
+      const int q = i % quads;
+      const int r = i / quads;
+      const int x = r % fw, y = r / fw;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int2 rg = touch[0][y];
+      for (int p = rg.x; p < rg.y; ++p) {
+        const Tap t = taps[0][p];
+        const float k = t.inside ? axis_weight(t, y0 + y) : 0.0f;
+        if (k != 0.0f) acc4(acc, tile[(p * fw + x) * quads + q], k);
+      }
+      if (acc.x != 0.0f || acc.y != 0.0f || acc.z != 0.0f || acc.w != 0.0f)
+        add4(g + ((size_t)(y0 + y) * w + x0 + x) * c + c0 + (q << 2), acc);
+    }
+    __syncthreads();  // the next pass rewrites the tile
   }
 }
 
 }  // namespace
 
-// grad_out: [B, N, pool, pool, C] in dtype (0 = float32, 1 = bfloat16);
-// g2..g5: f32 level gradients [B, H_l, W_l, C], zeroed, accumulated into.
+// grad_out: [B, N, pool, pool, C] in dtype (0 = float32, 1 = bfloat16),
+// C a multiple of 4; g2..g5: f32 level gradients [B, H_l, W_l, C], 16-byte
+// aligned, zeroed, accumulated into.
 extern "C" int caesar_roi_align_backward(void* g2, void* g3, void* g4, void* g5,
                                          int h2, int w2, int h3, int w3,
                                          int h4, int w4, int h5, int w5,
@@ -238,10 +374,10 @@ extern "C" int caesar_roi_align_backward(void* g2, void* g3, void* g4, void* g5,
   lv.ptr[0] = g2; lv.ptr[1] = g3; lv.ptr[2] = g4; lv.ptr[3] = g5;
   lv.h[0] = h2; lv.h[1] = h3; lv.h[2] = h4; lv.h[3] = h5;
   lv.w[0] = w2; lv.w[1] = w3; lv.w[2] = w4; lv.w[3] = w5;
-  if (pool < 2 || pool > kMaxPool || (c & 1)) return (int)cudaErrorInvalidValue;
-  const int pairs = c / 2;
-  const int threads = pairs >= 256 ? 256 : ((pairs + 31) / 32) * 32;
+  if (pool < 2 || pool > kMaxPool || (c & 3)) return (int)cudaErrorInvalidValue;
+  const int threads = kBwdThreads;
   const unsigned int blocks = (unsigned int)batch * (unsigned int)n;
+  if (blocks == 0) return (int)cudaSuccess;
   if (dtype == 0) {
     roi_align_backward_kernel<float><<<blocks, threads, 0, s>>>(
         lv, c, n, boxes, levels, pool, static_cast<const float*>(grad_out));

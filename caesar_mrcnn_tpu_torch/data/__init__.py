@@ -1,2 +1,3 @@
-"""Host data layer: the training pipeline. The dataset classes and the
-augmentations are the JAX package's, imported (they import no jax)."""
+"""Host data layer: the training pipeline, the dataset classes and the
+augmentations (copies of the JAX package's ``data.dataset`` and
+``data.augment``)."""

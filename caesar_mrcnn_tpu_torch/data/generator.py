@@ -6,8 +6,9 @@
 targets, GT subsampling to ``max_gt_instances`` and a skip-on-error budget
 of 5. Batches are numpy dicts with static shapes, in the wire of
 ``config.train_wire`` that ``train.trainer.mold_batch`` molds on the
-device. Datasets, augmentations, anchors and FITS reading are the JAX
-package's (they import no jax); resizes and meta are the port's
+device. Datasets, augmentations, anchors and FITS reading are the port's
+copies of the JAX package's modules (``data.dataset``, ``data.augment``,
+``utils.anchors``, ``utils.fits``); resizes and meta are the port's own
 (``utils.image``, ``models.meta``), so the mini-mask resize follows torch's
 bilinear rounding where cv2's differs (``utils.image.minimize_mask``).
 """
@@ -20,15 +21,14 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-from caesar_mrcnn_tpu.config import Config
-from caesar_mrcnn_tpu.data.augment import augment_image_and_mask
-from caesar_mrcnn_tpu.data.dataset import Dataset
-from caesar_mrcnn_tpu.utils.anchors import generate_pyramid_anchors
-
+from ..config import Config
 from ..models.meta import compose_image_meta
 from ..models.targets import build_rpn_targets
 from ..utils import boxes as B
 from ..utils import image as I
+from ..utils.anchors import generate_pyramid_anchors
+from .augment import augment_image_and_mask
+from .dataset import Dataset
 
 log = logging.getLogger(__name__)
 
@@ -248,7 +248,7 @@ class TrainingPipeline:
             }
         if not cfg.use_rpn_rois:
             # head-only training on generated ROIs (ext_rois)
-            from caesar_mrcnn_tpu.models.debug_rois import generate_random_rois
+            from ..models.debug_rois import generate_random_rois
 
             rois_px = generate_random_rois((h, w), cfg.post_nms_rois_training, bbox, rng)
             sample["rois"] = B.norm_boxes(rois_px.astype(np.float32), (h, w))

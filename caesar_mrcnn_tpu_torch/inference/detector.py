@@ -18,14 +18,13 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from caesar_mrcnn_tpu.config import Config
-from caesar_mrcnn_tpu.utils.anchors import get_anchors
-
 from .. import weights as W
+from ..config import Config
 from ..models.mask_rcnn import MaskRCNN, forward_inference
 from ..models.meta import compose_image_meta
 from ..utils import boxes as B
 from ..utils import image as I
+from ..utils.anchors import get_anchors
 
 
 class Detector:
@@ -222,10 +221,11 @@ class Detector:
 def build_detector(
     config: Config,
     seed: int = 0,
-    device="cpu",
+    device="cuda",
     weights: Optional[dict] = None,
 ) -> Detector:
-    """Model + weights on ``device``.
+    """Model + weights on ``device``: the card unless the caller asks for
+    another device (``device="cpu"`` runs the kernels' plain versions).
 
     ``weights`` is a numpy flax variable tree (converted by
     ``weights.flax_to_state_dict``); without it the weights are random,

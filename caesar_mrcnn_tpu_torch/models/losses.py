@@ -13,7 +13,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from caesar_mrcnn_tpu.config import Config
+from ..config import Config
 
 
 def smooth_l1(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:

@@ -16,9 +16,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from caesar_mrcnn_tpu import native
-from caesar_mrcnn_tpu.config import Config
-
+from .. import native
+from ..config import Config
 from ..ops.roi_align import crop_and_resize
 from ..utils import boxes as B
 from .proposals import top_k

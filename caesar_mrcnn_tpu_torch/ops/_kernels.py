@@ -92,7 +92,7 @@ def build() -> tuple:
 def library() -> ctypes.CDLL:
     """Build if needed, load once, and declare every entry point."""
     lib = ctypes.CDLL(str(build()[0]))
-    lib.caesar_nms.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P]
+    lib.caesar_nms.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P, _P]
     lib.caesar_nms.restype = _I
     lib.caesar_roi_align.argtypes = [_P] * 4 + [_I] * 10 + [_P, _P, _I, _I, _I, _P, _P]
     lib.caesar_roi_align.restype = _I

@@ -79,22 +79,23 @@ def nms_sorted_plain(
     return idx[:, :max_output].to(torch.int32), valid
 
 
-def _nms_cuda(sboxes, svalid, order, max_output: int, iou_threshold: float):
-    b, n = svalid.shape
+def _nms_cuda(boxes, scores, order, max_output: int, iou_threshold: float):
+    """The kernels of ``csrc/nms.cu`` on the unsorted boxes and scores and
+    the sort order: the mask kernel gathers and zeroes the sorted boxes
+    itself."""
+    b, n = scores.shape
     words = (n + 63) // 64
     if words * 8 > 48 * 1024:
         raise ValueError(f"nms kernel takes at most {48 * 1024 * 8} boxes, got {n}")
-    lib = _kernels.library()
-    dev = sboxes.device
-    order32 = order.to(torch.int32).contiguous()
-    valid_u8 = svalid.to(torch.uint8).contiguous()
-    scratch = torch.empty((b, n, words), dtype=torch.int64, device=dev)
+    dev = boxes.device
+    scratch = torch.empty(b * n * words + b * words, dtype=torch.int64, device=dev)  # mask, validity
+    state = torch.empty(b * (2 + max_output), dtype=torch.int32, device=dev)  # between the phases
     idx = torch.empty((b, max_output), dtype=torch.int32, device=dev)
     valid = torch.empty((b, max_output), dtype=torch.bool, device=dev)
-    status = lib.caesar_nms(
-        sboxes.data_ptr(), valid_u8.data_ptr(), order32.data_ptr(), b, n,
-        float(iou_threshold), max_output, scratch.data_ptr(), idx.data_ptr(),
-        valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    status = _kernels.library().caesar_nms(
+        boxes.data_ptr(), scores.data_ptr(), order.data_ptr(), b, n, float(iou_threshold),
+        max_output, scratch.data_ptr(), state.data_ptr(), idx.data_ptr(), valid.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _kernels.check(status, "caesar_nms")
     nms_padded.launches += 1
@@ -127,12 +128,13 @@ def nms_padded(
         raise ValueError("boxes and scores on different devices")
     if boxes.shape[1] == 0 or max_output < 1:
         raise ValueError("nms_padded needs at least one box and max_output >= 1")
-    sboxes, svalid, order = sort_boxes(boxes, scores)
     if boxes.device.type == "cpu":
-        return nms_sorted_plain(sboxes, svalid, order, max_output, iou_threshold)
+        return nms_sorted_plain(*sort_boxes(boxes, scores), max_output, iou_threshold)
     if boxes.device.type != "cuda":
         raise RuntimeError(f"nms_padded: no kernel for device {boxes.device}")
-    return _nms_cuda(sboxes, svalid, order, max_output, iou_threshold)
+    boxes, scores = boxes.contiguous(), scores.contiguous()
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    return _nms_cuda(boxes, scores, order, max_output, iou_threshold)
 
 
 nms_padded.launches = 0

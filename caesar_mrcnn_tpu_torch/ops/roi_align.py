@@ -22,7 +22,7 @@ training, samples the same way on one GT mask channel per box
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -109,16 +109,17 @@ def roi_align_plain(
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check_kernel_shapes(name, dtype, c, pool, n_levels):
+def _check_kernel_shapes(name, dtype, c, pool, n_levels, multiple=2):
     if n_levels != 4:
         raise ValueError(f"{name} kernel takes exactly 4 levels (P2..P5)")
     if dtype not in _DTYPES:
         raise TypeError(f"{name} kernel takes float32 or bfloat16, got {dtype}")
-    if c % 2 or not 2 <= pool <= 32:
-        raise ValueError(f"{name} kernel needs even C and 2 <= pool <= 32 (C={c}, pool={pool})")
+    if c % multiple or not 2 <= pool <= 32:
+        need = "even C" if multiple == 2 else f"C a multiple of {multiple}"
+        raise ValueError(f"{name} kernel needs {need} and 2 <= pool <= 32 (C={c}, pool={pool})")
 
 
-def _roi_align_cuda(features, boxes, image_shape, pool):
+def _roi_align_cuda(features, boxes, levels, pool):
     b, n = boxes.shape[:2]
     c = features[0].shape[-1]
     dtype = features[0].dtype
@@ -128,7 +129,6 @@ def _roi_align_cuda(features, boxes, image_shape, pool):
             raise ValueError("roi_align kernel needs contiguous NHWC levels")
         if f.data_ptr() % 8:
             raise ValueError("roi_align kernel needs 8-byte aligned levels")
-    levels = roi_levels(boxes, float(image_shape[0] * image_shape[1]), 4).contiguous()
     out = torch.empty((b, n, pool, pool, c), dtype=dtype, device=boxes.device)
     hw = [int(d) for f in features for d in f.shape[1:3]]
     lib = _kernels.library()
@@ -144,19 +144,21 @@ def _roi_align_cuda(features, boxes, image_shape, pool):
 
 class _RoiAlignCuda(torch.autograd.Function):
     """The forward kernel with the backward kernel as its gradient; boxes
-    carry no gradient (the training graph detaches its ROIs)."""
+    carry no gradient (the training graph detaches its ROIs). The backward
+    reuses the forward's levels."""
 
     @staticmethod
     def forward(ctx, boxes, image_shape, pool, *features):
-        ctx.save_for_backward(boxes)
+        levels = roi_levels(boxes, float(image_shape[0] * image_shape[1]), 4).contiguous()
+        ctx.save_for_backward(boxes, levels)
         ctx.image_shape = image_shape
         ctx.level_shapes = [tuple(f.shape[1:3]) for f in features]
-        return _roi_align_cuda(features, boxes, image_shape, pool)
+        return _roi_align_cuda(features, boxes, levels, pool)
 
     @staticmethod
     def backward(ctx, grad):
-        (boxes,) = ctx.saved_tensors
-        grads = roi_align_backward(grad.contiguous(), boxes, ctx.level_shapes, ctx.image_shape)
+        boxes, levels = ctx.saved_tensors
+        grads = roi_align_backward(grad.contiguous(), boxes, ctx.level_shapes, ctx.image_shape, levels=levels)
         return (None, None, None, *grads)
 
 
@@ -219,24 +221,25 @@ def roi_align_backward_plain(
         return list(torch.autograd.grad(out, feats, grad_out))
 
 
-def _roi_align_backward_cuda(grad_out, boxes, level_shapes, image_shape):
+def _roi_align_backward_cuda(grad_out, boxes, level_shapes, levels):
     b, n, pool, _, c = grad_out.shape
     dtype = grad_out.dtype
-    _check_kernel_shapes("roi_align_backward", dtype, c, pool, len(level_shapes))
-    levels = roi_levels(boxes, float(image_shape[0] * image_shape[1]), 4).contiguous()
+    _check_kernel_shapes("roi_align_backward", dtype, c, pool, len(level_shapes), multiple=4)
+    if grad_out.data_ptr() % 16:
+        raise ValueError("roi_align_backward kernel needs a 16-byte aligned grad_out")
     sizes = [b * h * w * c for h, w in level_shapes]
     scratch = torch.zeros(sum(sizes), dtype=torch.float32, device=grad_out.device)
-    grads = [g.view(b, h, w, c) for g, (h, w) in zip(scratch.split(sizes), level_shapes)]
-    hw = [int(d) for shape in level_shapes for d in shape]
-    lib = _kernels.library()
-    status = lib.caesar_roi_align_backward(
-        *(g.data_ptr() for g in grads), *hw, b, c, boxes.data_ptr(), levels.data_ptr(),
-        n, pool, _DTYPES[dtype], grad_out.data_ptr(),
-        torch.cuda.current_stream(grad_out.device).cuda_stream,
-    )
-    _kernels.check(status, "caesar_roi_align_backward")
-    roi_align_backward.launches += 1
-    return [g.to(dtype) for g in grads]
+    if n:  # no box, no gradient: nothing to launch
+        hw = [int(d) for shape in level_shapes for d in shape]
+        status = _kernels.library().caesar_roi_align_backward(
+            *(g.data_ptr() for g in scratch.split(sizes)), *hw, b, c, boxes.data_ptr(),
+            levels.data_ptr(), n, pool, _DTYPES[dtype], grad_out.data_ptr(),
+            torch.cuda.current_stream(grad_out.device).cuda_stream,
+        )
+        _kernels.check(status, "caesar_roi_align_backward")
+        roi_align_backward.launches += 1
+    flat = scratch if dtype == torch.float32 else scratch.to(dtype)  # one cast for all levels
+    return [g.view(b, h, w, c) for g, (h, w) in zip(flat.split(sizes), level_shapes)]
 
 
 def roi_align_backward(
@@ -244,6 +247,7 @@ def roi_align_backward(
     boxes: torch.Tensor,
     level_shapes: Sequence[Tuple[int, int]],
     image_shape: Tuple[int, int],
+    levels: Optional[torch.Tensor] = None,
 ) -> List[torch.Tensor]:
     """Gradient of :func:`roi_align` in the levels.
 
@@ -252,11 +256,14 @@ def roi_align_backward(
       boxes: [B, N, 4] float32, the forward's boxes.
       level_shapes: (H_l, W_l) of P2..P5.
       image_shape: (H, W) of the network input, for the level rule.
+      levels: the forward's [B, N] int32 :func:`roi_levels` of ``boxes``,
+        where the caller has them (the autograd path); else computed here.
 
     Returns one [B, H_l, W_l, C] gradient per level, in grad_out's dtype.
     CUDA tensors run the kernel (one launch, counted in
-    ``roi_align_backward.launches``): f32 atomic sums rounded once to the
-    dtype. CPU tensors run :func:`roi_align_backward_plain`.
+    ``roi_align_backward.launches``; none for zero boxes): f32 atomic sums
+    rounded once to the dtype. CPU tensors run
+    :func:`roi_align_backward_plain`.
     """
     if grad_out.dim() != 5 or grad_out.shape[2] != grad_out.shape[3]:
         raise ValueError(f"grad_out must be [B, N, pool, pool, C], got {tuple(grad_out.shape)}")
@@ -268,8 +275,11 @@ def roi_align_backward(
         return roi_align_backward_plain(grad_out, boxes, level_shapes, image_shape)
     if grad_out.device.type != "cuda":
         raise RuntimeError(f"roi_align_backward: no kernel for device {grad_out.device}")
+    boxes = boxes.contiguous()
+    if levels is None:
+        levels = roi_levels(boxes, float(image_shape[0] * image_shape[1]), len(level_shapes))
     return _roi_align_backward_cuda(
-        grad_out.contiguous(), boxes.contiguous(), [tuple(s) for s in level_shapes], image_shape
+        grad_out.contiguous(), boxes, [tuple(s) for s in level_shapes], levels.to(torch.int32).contiguous()
     )
 
 

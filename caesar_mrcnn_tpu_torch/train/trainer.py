@@ -27,11 +27,10 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from caesar_mrcnn_tpu.config import Config
-from caesar_mrcnn_tpu.utils.anchors import get_anchors
-
+from ..config import Config
 from ..models.losses import compute_losses
 from ..models.mask_rcnn import MaskRCNN, check_train_config, forward_train
+from ..utils.anchors import get_anchors
 from ..weights import flax_path
 
 log = logging.getLogger(__name__)

@@ -9,9 +9,12 @@ Phases, one line each:
 
 1. device: the card's name and power limit; TF32 is switched off;
 2. build: the CUDA kernels, compiled from ``caesar_mrcnn_tpu_torch/csrc``
-   (one nvcc per source, in parallel);
+   (one nvcc per source, in parallel), and the native host library
+   (``caesar_mrcnn_tpu_torch/native``), which must load;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the detect and train paths give it, with median times;
+   the shapes the detect and train paths give it, with median times, the
+   bound (the least time the card could take: bytes over 3.35 TB/s or f32
+   operations over 67 TFLOP/s, whichever is larger) and the roofline share;
 4. slice: the tiled detect path (``Detector.dispatch_tiles`` / ``collect``,
    two batches in flight) over 16 tiles of 512^2 read from a seeded 2048^2
    FITS mosaic, at the flagship's full width (ResNet-101, FPN 256, batch 8,
@@ -21,12 +24,17 @@ Phases, one line each:
 6. train: 20 Adam steps of the training flagship (ResNet-101, FPN 256,
    256^2, batch 8, bf16, 2000 post-NMS proposals, 512 ROIs, 300 GT) on a
    seeded 16-image FITS dataset read through ``SourceDataset`` and the
-   port's ``TrainingPipeline`` (compact wire);
+   port's ``TrainingPipeline`` (compact wire); then NMS and the ROIAlign
+   backward against their plain versions on the boxes of the last step
+   (its RPN boxes before NMS, its sampled ROIs);
 7. train parity: one f32 SGD step of ResNet-101 at batch 2, 128^2, on the
    card and on the CPU from the same weights, batch and priorities: losses
    and gradients.
 
-Then one JSON line with the kernels' record, and as the last line
+Then the card's name and power limit, one JSON line with the kernels'
+record (launches on the main paths; error, kernel, plain and bound times
+summed over the cases; ``library_ms`` null, with the reason beside it),
+and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result line. It needs a CUDA device and never falls
 back to the CPU.
@@ -37,47 +45,34 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import tempfile
 import time
 
 import numpy as np
 
 SEED = 0
+# Why no single PyTorch call stands beside each kernel (library_ms null).
+NO_LIBRARY = {
+    "nms": "none: no PyTorch call computes greedy NMS (torchvision is not installed, and the port may not use it)",
+    "roi_align": "none: F.grid_sample samples one map per call and blends samples partly outside it; the "
+                 "per-box FPN level needs a gather first",
+    "roi_align_backward": "none: no PyTorch call scatters bilinear taps into four levels",
+    "crop_and_resize": "none: F.grid_sample cannot pick each box's mask channel and blends samples partly "
+                       "outside the map",
+}
+
+
+def share(bound_ms: float, ms: float) -> str:
+    return f"bound {bound_ms:.4f} ms, roofline share {bound_ms / ms:.3f}"
+
+
 CLASS_NAMES = ("bkg", "sidelobe", "source", "galaxy")
-
-
-def card() -> str:
-    """``name, power.limit`` of the first card, as nvidia-smi reports them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def median_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median device time of ``fn`` in ms, from CUDA events around each call."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def train_config(**overrides):
     """The training flagship of ``bench_train.py``: ResNet-101, 256^2,
     batch 8, bf16, Adam, 300 GT, full-size masks, 512 ROIs."""
-    from caesar_mrcnn_tpu_torch.host import detector_config
+    from caesar_mrcnn_tpu_torch.config import detector_config
 
     kw = dict(
         num_classes=4, class_names=CLASS_NAMES, image_min_dim=256, image_max_dim=256,
@@ -89,7 +84,7 @@ def train_config(**overrides):
 
 def flagship_config(**overrides):
     """The serving flagship: ResNet-101, 512^2, batch 8, bf16, 6000/1000."""
-    from caesar_mrcnn_tpu_torch.host import detector_config
+    from caesar_mrcnn_tpu_torch.config import detector_config
 
     kw = dict(
         num_classes=4, class_names=CLASS_NAMES, image_min_dim=512,
@@ -129,39 +124,6 @@ def randomize_affine(model, seed: int = SEED) -> None:
 # ------------------------------------------------------------------ kernels
 
 
-def nms_case(rng, b: int, n: int, classes: bool):
-    """Seeded boxes in clusters of near-duplicates, with exact score ties,
-    -inf (invalid) scores and zero boxes; optionally class-offset."""
-    centers = rng.uniform(0.0, 0.85, (b, n // 8 + 1, 2))
-    sizes = rng.uniform(0.01, 0.15, (b, n // 8 + 1, 2))
-    pick = rng.randint(0, centers.shape[1], (b, n))
-    c = np.take_along_axis(centers, pick[..., None], 1)
-    s = np.take_along_axis(sizes, pick[..., None], 1)
-    jitter = rng.uniform(-0.004, 0.004, (b, n, 4))
-    boxes = np.concatenate([c, np.minimum(c + s, 1.0)], -1) + jitter
-    boxes = np.clip(boxes, 0.0, 1.0)
-    boxes[rng.rand(b, n) < 0.02] = 0.0
-    scores = np.round(rng.uniform(0.0, 1.0, (b, n)), 3)  # exact ties
-    scores[rng.rand(b, n) < 0.05] = -np.inf
-    if classes:
-        boxes = boxes + 2.0 * rng.randint(1, 4, (b, n, 1))
-    return boxes.astype(np.float32), scores.astype(np.float32)
-
-
-def roi_case(rng, b: int, n: int):
-    """Boxes of every size (all four levels), border-touching and zero."""
-    y1 = rng.uniform(0.0, 0.9, (b, n))
-    x1 = rng.uniform(0.0, 0.9, (b, n))
-    h = np.exp(rng.uniform(np.log(0.01), 0.0, (b, n)))
-    w = h * np.exp(rng.uniform(-0.7, 0.7, (b, n)))
-    boxes = np.stack([y1, x1, np.minimum(y1 + h, 1.0), np.minimum(x1 + w, 1.0)], -1)
-    boxes[:, ::7, 0] = 0.0
-    boxes[:, ::11, 3] = 1.0
-    boxes[:, ::13] = [0.0, 0.0, 1.0, 1.0]
-    boxes[:, -5:] = 0.0
-    return boxes.astype(np.float32)
-
-
 def bf16_ulp(x):
     """One bf16 ulp at each value of the f32 tensor ``x`` (8 significant
     bits); 2^-133 at zero, so an exact zero must be matched exactly."""
@@ -171,34 +133,58 @@ def bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x), torch.where(x == 0, -125, e) - 8)
 
 
-def check_nms(dev, rng, card_name: str) -> dict:
+def _record() -> dict:
+    """A kernel's sums over its cases; ``by`` is the bound's ms by kind."""
+    return {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "by": {"bytes": 0.0, "operations": 0.0}}
+
+
+def _add(rec: dict, err: float, ms: float, plain_ms: float, bound) -> None:
+    rec["err"] = max(rec["err"], err)
+    rec["ms"] += ms
+    rec["plain_ms"] += plain_ms
+    rec["bound_ms"] += bound[0]
+    rec["by"][bound[1]] += bound[0]
+
+
+def nms_against_plain(rec: dict, boxes, scores, max_out: int, thr: float, label: str, card_name: str) -> None:
+    """The kernel equal to its plain version entry for entry, then timed."""
     import torch
 
     from caesar_mrcnn_tpu_torch.ops import nms as N
 
-    rec = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    # detect: RPN (1000 kept) and per-class detection NMS; train: RPN (2000 kept)
-    for b, n, thr, max_out, classes in ((8, 6000, 0.9, 1000, False), (8, 1000, 0.3, 300, True),
-                                        (8, 6000, 0.9, 2000, False)):
-        boxes, scores = (torch.from_numpy(a).to(dev) for a in nms_case(rng, b, n, classes))
+    from caesar_mrcnn_tpu_torch import kernel_bench as kb
 
-        def kernel():
-            return N.nms_padded(boxes, scores, max_out, thr)
+    b, n = scores.shape
 
-        def plain():
-            return N.nms_sorted_plain(*N.sort_boxes(boxes, scores), max_out, thr)
+    def kernel():
+        return N.nms_padded(boxes, scores, max_out, thr)
 
-        ki, kv = kernel()
-        pi, pv = plain()
-        torch.cuda.synchronize()
-        if not (torch.equal(ki, pi.to(ki.dtype)) and torch.equal(kv, pv)):
-            bad = int((ki != pi).sum() + (kv != pv).sum())
-            raise AssertionError(f"nms {b}x{n} thr {thr}: {bad} entries differ from the plain version")
-        ms, plain_ms = median_ms(kernel, 20), median_ms(plain, 3)
-        print(f"kernels: nms B={b} N={n} thr={thr} max_output={max_out}: idx/valid equal "
-              f"({int(kv.sum())} kept); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events) [{card_name}]")
-        rec["ms"] += ms
-        rec["plain_ms"] += plain_ms
+    def plain():
+        return N.nms_sorted_plain(*N.sort_boxes(boxes, scores), max_out, thr)
+
+    ki, kv = kernel()
+    pi, pv = plain()
+    torch.cuda.synchronize()
+    if not (torch.equal(ki, pi.to(ki.dtype)) and torch.equal(kv, pv)):
+        bad = int((ki != pi).sum() + (kv != pv).sum())
+        raise AssertionError(f"nms {label}: {bad} entries differ from the plain version")
+    ms, plain_ms = kb.median_ms(kernel, 20), kb.median_ms(plain, 3)
+    bound = kb.nms_bound(b, n, max_out, kb.nms_pairs(scores, ki, kv, max_out))
+    print(f"kernels: nms {label} B={b} N={n} thr={thr} max_output={max_out}: idx/valid equal "
+          f"({int(kv.sum())} kept); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events); "
+          f"{share(bound[0], ms)} ({bound[1]}) [{card_name}]")
+    _add(rec, 0.0, ms, plain_ms, bound)
+
+
+def check_nms(dev, rng, card_name: str) -> dict:
+    import torch
+
+    from caesar_mrcnn_tpu_torch import kernel_bench as kb
+
+    rec = _record()
+    for b, n, thr, max_out, classes in kb.NMS_CASES:
+        boxes, scores = (torch.from_numpy(a).to(dev) for a in kb.nms_case(rng, b, n, classes))
+        nms_against_plain(rec, boxes, scores, max_out, thr, "class-offset" if classes else "seeded", card_name)
     return rec
 
 
@@ -207,8 +193,10 @@ def check_roi_align(dev, rng, card_name: str) -> dict:
 
     from caesar_mrcnn_tpu_torch.ops import roi_align as R
 
+    from caesar_mrcnn_tpu_torch import kernel_bench as kb
+
     b, c = 8, 256
-    rec = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    rec = _record()
     # detect: 512^2, 1000 proposals at 7 and 100 detections at 14;
     # train: 256^2, 512 ROIs at 7 and the 168 positive slots at 14
     cases = [(512, n, pool) for n, pool in ((1000, 7), (100, 14))]
@@ -221,7 +209,7 @@ def check_roi_align(dev, rng, card_name: str) -> dict:
                 for s in (image // 4, image // 8, image // 16, image // 32)
             ]
         lv = levels[image]
-        boxes = torch.from_numpy(roi_case(rng, b, n)).to(dev)
+        boxes = torch.from_numpy(kb.roi_case(rng, b, n)).to(dev)
 
         def kernel():
             return R.roi_align(lv, boxes, (image, image), pool)
@@ -237,61 +225,72 @@ def check_roi_align(dev, rng, card_name: str) -> dict:
             raise AssertionError(f"roi_align {image}^2 N={n} pool={pool}: beyond 1 bf16 ulp, "
                                  f"max abs {float(diff.max())}")
         err = float(diff.max())
-        ms, plain_ms = median_ms(kernel, 20), median_ms(plain, 5)
+        ms, plain_ms = kb.median_ms(kernel, 20), kb.median_ms(plain, 5)
+        bound = kb.roi_align_bound(b, [tuple(f.shape[1:3]) for f in lv], n, pool, c, 2)
         print(f"kernels: roi_align bf16 {image}^2 B={b} N={n} pool={pool} C={c}: within 1 bf16 ulp "
-              f"(max abs {err:.3g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events) [{card_name}]")
-        rec["err"] = max(rec["err"], err)
-        rec["ms"] += ms
-        rec["plain_ms"] += plain_ms
+              f"(max abs {err:.3g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events); "
+              f"{share(bound[0], ms)} ({bound[1]}) [{card_name}]")
+        _add(rec, err, ms, plain_ms, bound)
     return rec
 
 
-def check_roi_align_backward(dev, rng, card_name: str) -> dict:
-    """The backward kernel against the f64 plain gradient at the two
-    training shapes, bf16 and f32. Tolerance, per element: f32 within 1e-5
-    of the element's absolute-contribution sum (atomics sum in any order);
-    bf16 within 2 bf16 ulp of the f64 value plus that f32 term (the kernel
-    sums in f32 and rounds once)."""
+def backward_against_plain(rec: dict, grad, boxes, label: str, card_name: str) -> None:
+    """The backward kernel against the f64 plain gradient at the training
+    pyramid (256^2: 64..8). Tolerance, per element: f32 within 1e-5 of the
+    element's absolute-contribution sum (atomics sum in any order); bf16
+    within 2 bf16 ulp of the f64 value plus that f32 term (the kernel sums
+    in f32 and rounds once)."""
     import torch
 
     from caesar_mrcnn_tpu_torch.ops import roi_align as R
 
-    b, c = 8, 256
-    shapes = [(s, s) for s in (64, 32, 16, 8)]
-    rec = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    for n, pool in ((512, 7), (168, 14)):
-        boxes = torch.from_numpy(roi_case(rng, b, n)).to(dev)
+    from caesar_mrcnn_tpu_torch import kernel_bench as kb
+
+    shapes = kb.TRAIN_LEVELS
+    b, n, pool, _, c = grad.shape
+
+    def kernel():
+        return R.roi_align_backward(grad, boxes, shapes, (256, 256))
+
+    def plain():
+        return R.roi_align_backward_plain(grad, boxes, shapes, (256, 256))
+
+    got = kernel()
+    ref = R.roi_align_backward_plain(grad.double(), boxes, shapes, (256, 256))
+    mag = R.roi_align_backward_plain(grad.double().abs(), boxes, shapes, (256, 256))
+    torch.cuda.synchronize()
+    err = 0.0
+    for lvl, (g, r, m) in enumerate(zip(got, ref, mag)):
+        diff = (g.double() - r).abs()
+        tol = 1e-5 * m
+        if grad.dtype == torch.bfloat16:
+            tol = tol + 2 * bf16_ulp(r.abs().float()).double()
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"roi_align_backward {label} {grad.dtype} N={n} pool={pool} P{lvl + 2}: "
+                                 f"max abs diff {float(diff.max())}")
+        err = max(err, float(diff.max()))
+    ms, plain_ms = kb.median_ms(kernel, 10), kb.median_ms(plain, 3)
+    bound = kb.roi_align_backward_bound(b, shapes, n, pool, c, grad.element_size())
+    name = "bf16" if grad.dtype == torch.bfloat16 else "f32"
+    print(f"kernels: roi_align_backward {label} {name} B={b} N={n} pool={pool} C={c}: within tolerance of "
+          f"the f64 plain gradient (max abs {err:.3g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+          f"(median, CUDA events); {share(bound[0], ms)} ({bound[1]}) [{card_name}]")
+    _add(rec, err, ms, plain_ms, bound)
+
+
+def check_roi_align_backward(dev, rng, card_name: str) -> dict:
+    """The backward kernel at the two training shapes, bf16 and f32, on
+    seeded boxes of every size."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch import kernel_bench as kb
+
+    rec = _record()
+    for b, n, pool, c in kb.BACKWARD_CASES:
+        boxes = torch.from_numpy(kb.roi_case(rng, b, n)).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             grad = torch.from_numpy(rng.randn(b, n, pool, pool, c).astype(np.float32)).to(dev, dtype)
-
-            def kernel():
-                return R.roi_align_backward(grad, boxes, shapes, (256, 256))
-
-            def plain():
-                return R.roi_align_backward_plain(grad, boxes, shapes, (256, 256))
-
-            got = kernel()
-            ref = R.roi_align_backward_plain(grad.double(), boxes, shapes, (256, 256))
-            mag = R.roi_align_backward_plain(grad.double().abs(), boxes, shapes, (256, 256))
-            torch.cuda.synchronize()
-            err = 0.0
-            for lvl, (g, r, m) in enumerate(zip(got, ref, mag)):
-                diff = (g.double() - r).abs()
-                tol = 1e-5 * m
-                if dtype == torch.bfloat16:
-                    tol = tol + 2 * bf16_ulp(r.abs().float()).double()
-                if not bool((diff <= tol).all()):
-                    raise AssertionError(f"roi_align_backward {dtype} N={n} pool={pool} P{lvl + 2}: "
-                                         f"max abs diff {float(diff.max())}")
-                err = max(err, float(diff.max()))
-            ms, plain_ms = median_ms(kernel, 10), median_ms(plain, 3)
-            name = "bf16" if dtype == torch.bfloat16 else "f32"
-            print(f"kernels: roi_align_backward {name} B={b} N={n} pool={pool} C={c}: within tolerance of the "
-                  f"f64 plain gradient (max abs {err:.3g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-                  f"(median, CUDA events) [{card_name}]")
-            rec["err"] = max(rec["err"], err)
-            rec["ms"] += ms
-            rec["plain_ms"] += plain_ms
+            backward_against_plain(rec, grad, boxes, "seeded", card_name)
     return rec
 
 
@@ -302,10 +301,12 @@ def check_crop_and_resize(dev, rng, card_name: str) -> dict:
 
     from caesar_mrcnn_tpu_torch.ops import roi_align as R
 
+    from caesar_mrcnn_tpu_torch import kernel_bench as kb
+
     b, h, g, r = 8, 256, 300, 168
     gen = torch.Generator(device=dev).manual_seed(SEED)
     masks = (torch.rand((b, h, h, g), generator=gen, device=dev) > 0.7).float()
-    boxes = roi_case(rng, b, r)
+    boxes = kb.roi_case(rng, b, r)
     boxes[:, 3] = [-0.1, 0.2, 0.5, 1.2]  # partly outside the map
     boxes = torch.from_numpy(boxes).to(dev)
     assign = torch.from_numpy(rng.randint(0, g, (b, r))).to(dev)
@@ -321,10 +322,13 @@ def check_crop_and_resize(dev, rng, card_name: str) -> dict:
     if not torch.equal(k, p):
         raise AssertionError(f"crop_and_resize: {int((k != p).sum())} values differ from the plain version, "
                              f"max abs {float((k - p).abs().max())}")
-    ms, plain_ms = median_ms(kernel, 20), median_ms(plain, 5)
+    ms, plain_ms = kb.median_ms(kernel, 20), kb.median_ms(plain, 5)
+    bound = kb.crop_and_resize_bound(b, r, 28, 28)
     print(f"kernels: crop_and_resize f32 masks [{b},{h},{h},{g}] R={r} 28x28: bit-equal; kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms (median, CUDA events) [{card_name}]")
-    return {"err": 0.0, "ms": ms, "plain_ms": plain_ms}
+          f"plain {plain_ms:.3f} ms (median, CUDA events); {share(bound[0], ms)} ({bound[1]}) [{card_name}]")
+    rec = _record()
+    _add(rec, 0.0, ms, plain_ms, bound)
+    return rec
 
 
 # -------------------------------------------------------------------- slice
@@ -332,7 +336,7 @@ def check_crop_and_resize(dev, rng, card_name: str) -> dict:
 
 def write_mosaic(path: str, n: int = 2048, seed: int = SEED) -> None:
     """Radio-looking n x n FITS mosaic: noise plus gaussian sources."""
-    from caesar_mrcnn_tpu_torch.host import write_fits
+    from caesar_mrcnn_tpu_torch.utils.fits import write_fits
 
     rng = np.random.RandomState(seed)
     img = rng.normal(0.0, 0.05, (n, n)).astype(np.float32)
@@ -349,7 +353,8 @@ def write_mosaic(path: str, n: int = 2048, seed: int = SEED) -> None:
 
 
 def read_tiles(path: str, n: int, size: int) -> np.ndarray:
-    from caesar_mrcnn_tpu_torch.host import generate_tiles, read_tile_u8
+    from caesar_mrcnn_tpu_torch.utils.fits import read_tile_u8
+    from caesar_mrcnn_tpu_torch.utils.tiles import generate_tiles
 
     tiles = [read_tile_u8(path, x1, x2, y1, y2)
              for x1, x2, y1, y2 in generate_tiles(0, n, 0, n, size, size)]
@@ -463,7 +468,7 @@ def write_train_dataset(root: str, n_images: int = 16, size: int = 256, objects:
     plus ``objects`` elliptical gaussian sources per image, each with its
     own FITS mask (8..40 px across, the density of ``bench_train.py``).
     Returns the list of json descriptors, one per line."""
-    from caesar_mrcnn_tpu_torch.host import write_fits
+    from caesar_mrcnn_tpu_torch.utils.fits import write_fits
 
     rng = np.random.RandomState(seed)
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
@@ -488,7 +493,7 @@ def write_train_dataset(root: str, n_images: int = 16, size: int = 256, objects:
 
 
 def load_train_dataset(paths):
-    from caesar_mrcnn_tpu_torch.host import SourceDataset
+    from caesar_mrcnn_tpu_torch.data.dataset import SourceDataset
 
     ds = SourceDataset()
     ds.set_class_dict({name: i for i, name in enumerate(CLASS_NAMES) if i})
@@ -505,6 +510,7 @@ def check_train(ds, card_name: str) -> dict:
 
     from caesar_mrcnn_tpu_torch import weights as W
     from caesar_mrcnn_tpu_torch.data.generator import TrainingPipeline
+    from caesar_mrcnn_tpu_torch.models import proposals as P
     from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN, forward_train
     from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
     from caesar_mrcnn_tpu_torch.ops.roi_align import crop_and_resize, roi_align, roi_align_backward
@@ -551,12 +557,27 @@ def check_train(ds, card_name: str) -> dict:
             raise AssertionError(f"train step {i}: non-finite {bad}")
     step_ms = statistics.median(s.elapsed_time(e) for s, e in events[2:])
 
-    # the targets of the last batch: rounded masks in {0, 1}, only on positives
+    # the targets of the last batch: rounded masks in {0, 1}, only on positives;
+    # and the RPN's boxes and scores before its NMS, captured for the kernel
+    # checks on a real step's boxes
+    captured = {}
+
+    def capture_nms(boxes, scores, *args):
+        captured["nms"] = (boxes.clone(), scores.clone(), *args)
+        return nms_padded(boxes, scores, *args)
+
     with torch.no_grad():
         b = T.mold_batch(batch, cfg)
-        out = forward_train(model, b["images"], b["gt_class_ids"], b["gt_boxes"], b["gt_masks"],
-                            torch.from_numpy(pipe.anchors_normalized()).cuda(),
-                            torch.tensor(cfg.rpn_bbox_std_dev, device="cuda"), generator=gen)
+        P.nms_padded = capture_nms
+        try:
+            out = forward_train(model, b["images"], b["gt_class_ids"], b["gt_boxes"], b["gt_masks"],
+                                torch.from_numpy(pipe.anchors_normalized()).cuda(),
+                                torch.tensor(cfg.rpn_bbox_std_dev, device="cuda"), generator=gen)
+        finally:
+            P.nms_padded = nms_padded
+    pos_cap = int(cfg.train_rois_per_image * cfg.roi_positive_ratio)
+    captured["rois"] = {cfg.pool_size: out.rois.contiguous(),
+                        cfg.mask_pool_size: out.rois[:, :pos_cap].contiguous()}
     tm = out.target_masks
     positive = (out.target_class_ids > 0).float()
     if not bool(((tm == 0) | (tm == 1)).all()) or not bool((tm.flatten(2).amax(2) <= positive).all()):
@@ -570,7 +591,26 @@ def check_train(ds, card_name: str) -> dict:
           f"with the host pipeline ({wall:.2f} s for {steps} steps); peak device memory "
           f"{peak / 2**30:.2f} GiB; total_loss first {totals[0]:.4f}, last {totals[-1]:.4f} [{card_name}]")
     print("train: losses of the last step " + json.dumps({k: round(float(v), 5) for k, v in losses[-1].items()}))
-    return launches
+    return launches, captured
+
+
+def check_train_step_boxes(captured: dict, nms_rec: dict, bwd_rec: dict, card_name: str) -> None:
+    """NMS and the ROIAlign backward on the boxes of a real flagship train
+    step (its RPN boxes and scores before NMS; its 512 sampled ROIs at pool
+    7 and 168 positive slots at pool 14, around 12 sources per image), which
+    the seeded log-uniform boxes understate: these crowd onto P2."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch.ops.roi_align import roi_levels
+
+    boxes, scores, max_out, thr = captured["nms"]
+    nms_against_plain(nms_rec, boxes, scores, max_out, thr, "train-step RPN", card_name)
+    rng = np.random.RandomState(SEED + 1)
+    for pool, rois in captured["rois"].items():
+        per_level = torch.bincount(roi_levels(rois, 256.0 * 256.0).flatten().long(), minlength=4).tolist()
+        print(f"kernels: train-step ROIs at pool {pool}: {tuple(rois.shape[:2])}, per level P2..P5 {per_level}")
+        grad = torch.from_numpy(rng.randn(*rois.shape[:2], pool, pool, 256).astype(np.float32))
+        backward_against_plain(bwd_rec, grad.to(rois.device, torch.bfloat16), rois, "train-step", card_name)
 
 
 def check_train_parity(ds, card_name: str) -> None:
@@ -641,11 +681,12 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run only on the card")
+    from caesar_mrcnn_tpu_torch import kernel_bench, native
     from caesar_mrcnn_tpu_torch.ops import _kernels
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    card_name = card()
+    card_name = kernel_bench.card()
     print(f"device: {card_name}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"TF32 off for convolutions and matmuls")
 
@@ -656,6 +697,11 @@ def main() -> None:
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"build: {line.strip()}")
+    t = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native host library (caesar_mrcnn_tpu_torch/native) did not build or load")
+    print(f"build: native host library loaded, {os.path.relpath(native.library_path())} "
+          f"({time.perf_counter() - t:.1f} s)")
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED)
@@ -668,14 +714,17 @@ def main() -> None:
     check_parity(card_name)
     with tempfile.TemporaryDirectory() as tmp:
         ds = load_train_dataset(write_train_dataset(tmp))
-        train = check_train(ds, card_name)
+        train, captured = check_train(ds, card_name)
+        check_train_step_boxes(captured, nms, roi_bwd, card_name)
         check_train_parity(ds, card_name)
     print(f"launches: detect path {detect}, train path {train}")
 
     def record(name, source, replaces, rec):
         return {"name": name, "route": "cuda", "source": f"caesar_mrcnn_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": detect.get(name, 0) + train[name],
-                "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"]}
+                "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": max(rec["by"], key=rec["by"].get), "library_ms": None,
+                "library": NO_LIBRARY[name]}
 
     kernels = [
         record("nms", "nms.cu", "caesar_mrcnn_tpu/ops/nms.py:96", nms),
@@ -683,6 +732,7 @@ def main() -> None:
         record("roi_align_backward", "roi_align.cu", "caesar_mrcnn_tpu/ops/roi_align.py:114", roi_bwd),
         record("crop_and_resize", "crop_and_resize.cu", "caesar_mrcnn_tpu/ops/roi_align.py:43", crop),
     ]
+    print(card_name)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

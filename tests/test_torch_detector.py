@@ -20,9 +20,10 @@ import numpy as np
 import pytest
 import torch
 
-from caesar_mrcnn_tpu.config import detector_config, inference_config
+from caesar_mrcnn_tpu import config as jconfig
 from caesar_mrcnn_tpu.inference.detector import Detector as JaxDetector
 from caesar_mrcnn_tpu.models.mask_rcnn import MaskRCNN as JaxMaskRCNN
+from caesar_mrcnn_tpu_torch.config import detector_config, inference_config
 from caesar_mrcnn_tpu_torch.inference.detector import build_detector
 from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
 from caesar_mrcnn_tpu_torch.ops.roi_align import roi_align
@@ -30,25 +31,26 @@ from caesar_mrcnn_tpu_torch.testing import compare_detections, settle_flax_weigh
 
 torch.set_num_threads(2)
 
-CFG = inference_config(
-    detector_config(
-        backbone="custom", image_min_dim=128, image_max_dim=128, num_classes=4,
-        class_names=("bkg", "sidelobe", "source", "galaxy"), images_per_device=1,
-        pre_nms_limit=256, post_nms_rois_inference=64, detection_max_instances=16,
-        compute_dtype="float32", score_thr=0.0,
-    )
+KW = dict(
+    backbone="custom", image_min_dim=128, image_max_dim=128, num_classes=4,
+    class_names=("bkg", "sidelobe", "source", "galaxy"), images_per_device=1,
+    pre_nms_limit=256, post_nms_rois_inference=64, detection_max_instances=16,
+    compute_dtype="float32", score_thr=0.0,
 )
+# the same configuration for the port and, field by field, for the JAX package
+CFG = inference_config(detector_config(**KW))
+JCFG = jconfig.inference_config(jconfig.detector_config(**KW))
 
 
 @pytest.fixture(scope="module")
 def detectors():
     """(JAX Detector, port Detector) with the same weights: ``init_model``'s
     PRNGKey(0) variables, settled by ``settle_flax_weights``."""
-    jmodel = JaxMaskRCNN(CFG)
-    dummy = jnp.zeros((1,) + CFG.image_shape, jnp.float32)
+    jmodel = JaxMaskRCNN(JCFG)
+    dummy = jnp.zeros((1,) + JCFG.image_shape, jnp.float32)
     variables = jax.jit(lambda key: jmodel.init(key, dummy, train=False))(jax.random.PRNGKey(0))
     tree = settle_flax_weights(jax.tree_util.tree_map(np.array, variables))
-    return JaxDetector(CFG, jmodel, tree), build_detector(CFG, device="cpu", weights=tree)
+    return JaxDetector(JCFG, jmodel, tree), build_detector(CFG, device="cpu", weights=tree)
 
 
 def _raw(fetched):

@@ -13,15 +13,15 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from caesar_mrcnn_tpu.config import detector_config, inference_config
+from caesar_mrcnn_tpu import config as jconfig
 from caesar_mrcnn_tpu.models import backbone as jbackbone
 from caesar_mrcnn_tpu.models.detection import refine_detections as jax_refine
 from caesar_mrcnn_tpu.models.mask_rcnn import MaskRCNN as JaxMaskRCNN
 from caesar_mrcnn_tpu.models.proposals import generate_proposals as jax_proposals
 from caesar_mrcnn_tpu.utils import boxes as jboxes
 from caesar_mrcnn_tpu.utils import image as jimage
-from caesar_mrcnn_tpu.utils.anchors import get_anchors
 from caesar_mrcnn_tpu_torch import weights as W
+from caesar_mrcnn_tpu_torch.config import detector_config, inference_config
 from caesar_mrcnn_tpu_torch.models.backbone import ResNet
 from caesar_mrcnn_tpu_torch.models.detection import refine_detections
 from caesar_mrcnn_tpu_torch.models.layers import FrozenBatchNorm
@@ -29,19 +29,20 @@ from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
 from caesar_mrcnn_tpu_torch.models.proposals import generate_proposals
 from caesar_mrcnn_tpu_torch.utils import boxes as tboxes
 from caesar_mrcnn_tpu_torch.utils import image as timage
+from caesar_mrcnn_tpu_torch.utils.anchors import get_anchors
 
 torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-CFG = inference_config(
-    detector_config(
-        backbone="custom", image_min_dim=64, image_max_dim=64, num_classes=4,
-        class_names=("bkg", "sidelobe", "source", "galaxy"), images_per_device=2,
-        pre_nms_limit=256, post_nms_rois_inference=64, detection_max_instances=16,
-        compute_dtype="float32",
-    ),
-    images_per_device=2,
+KW = dict(
+    backbone="custom", image_min_dim=64, image_max_dim=64, num_classes=4,
+    class_names=("bkg", "sidelobe", "source", "galaxy"), images_per_device=2,
+    pre_nms_limit=256, post_nms_rois_inference=64, detection_max_instances=16,
+    compute_dtype="float32",
 )
+# the same configuration for the port and, field by field, for the JAX package
+CFG = inference_config(detector_config(**KW), images_per_device=2)
+JCFG = jconfig.inference_config(jconfig.detector_config(**KW), images_per_device=2)
 
 
 def _np_tree(variables):
@@ -72,7 +73,7 @@ def _apply(jmodel, method, *args):
 @pytest.fixture(scope="module")
 def models():
     """(JAX module, numpy variables, port model) with the same weights."""
-    jmodel = JaxMaskRCNN(CFG)
+    jmodel = JaxMaskRCNN(JCFG)
     tree = _random_variables(jmodel, np.zeros((1,) + CFG.image_shape, np.float32), seed=0)
     tmodel = MaskRCNN(CFG)
     tmodel.load_state_dict(W.flax_to_state_dict(tree))

@@ -1,10 +1,13 @@
 """The machine with the card has no jax, flax, optax, orbax, cv2 or
-matplotlib. These tests hold the port (``caesar_mrcnn_tpu_torch`` and
-``chip_smoke.py``) to that, and check that nothing falls back to the CPU or
-to a plain version where CUDA was asked for.
+matplotlib, and the port keeps its own copies of the host modules it needs.
+These tests hold the port (``caesar_mrcnn_tpu_torch`` and ``chip_smoke.py``)
+to running without those packages and without the JAX package
+``caesar_mrcnn_tpu``, and check that nothing falls back to the CPU or to a
+plain version where CUDA was asked for.
 """
 
 import ast
+import inspect
 import os
 import shutil
 import subprocess
@@ -26,11 +29,11 @@ BLOCK_IMPORTS = """
 import sys
 
 class _Blocked:
-    names = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "matplotlib"}
+    names = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "matplotlib", "caesar_mrcnn_tpu"}
 
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in self.names:
-            raise ImportError(f"{name} is not installed on the card's machine")
+            raise ImportError(f"{name} is not available to the port")
         return None
 
 sys.meta_path.insert(0, _Blocked())
@@ -43,7 +46,7 @@ import caesar_mrcnn_tpu_torch as pkg
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 import chip_smoke
-from caesar_mrcnn_tpu_torch.host import detector_config, inference_config
+from caesar_mrcnn_tpu_torch.config import detector_config, inference_config
 from caesar_mrcnn_tpu_torch.inference.detector import build_detector
 cfg = inference_config(detector_config(
     backbone="custom", image_min_dim=64, image_max_dim=64, num_classes=4,
@@ -66,7 +69,7 @@ import caesar_mrcnn_tpu_torch.data.generator as G
 import caesar_mrcnn_tpu_torch.models.targets as TT
 import caesar_mrcnn_tpu_torch.train.checkpoints
 import chip_smoke
-from caesar_mrcnn_tpu_torch.host import detector_config
+from caesar_mrcnn_tpu_torch.config import detector_config
 from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
 cfg = detector_config(
     backbone="custom", image_min_dim=64, image_max_dim=64, num_classes=4, images_per_device=2,
@@ -96,6 +99,9 @@ def _run(args, cwd, env_extra=None):
 
 
 def test_port_imports_and_runs_without_jax_cv2_matplotlib():
+    """Every module of the port and chip_smoke.py import, and the detect
+    slice runs, with jax, flax, optax, orbax, cv2, matplotlib and the JAX
+    package ``caesar_mrcnn_tpu`` blocked."""
     proc = _run(["-c", BLOCK_IMPORTS + SLICE], cwd=REPO, env_extra={"PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "slice ok" in proc.stdout
@@ -103,7 +109,8 @@ def test_port_imports_and_runs_without_jax_cv2_matplotlib():
 
 def test_training_path_imports_and_steps_without_jax_cv2_matplotlib():
     """trainer, generator and targets import, and one train step runs, with
-    jax, flax, optax, orbax, cv2 and matplotlib blocked."""
+    jax, flax, optax, orbax, cv2, matplotlib and ``caesar_mrcnn_tpu``
+    blocked."""
     proc = _run(["-c", BLOCK_IMPORTS + TRAIN], cwd=REPO, env_extra={"PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "train ok" in proc.stdout
@@ -111,7 +118,8 @@ def test_training_path_imports_and_steps_without_jax_cv2_matplotlib():
 
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py drives the port alone: every module it imports is the
-    standard library, numpy, torch or ``caesar_mrcnn_tpu_torch``."""
+    standard library, numpy, torch or ``caesar_mrcnn_tpu_torch``, and none
+    is a module of the JAX package ``caesar_mrcnn_tpu``."""
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     names = set()
     for node in ast.walk(tree):
@@ -119,10 +127,35 @@ def test_chip_smoke_imports_only_the_port():
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module)
-    assert "caesar_mrcnn_tpu_torch.host" in names
+    assert "caesar_mrcnn_tpu_torch.config" in names
+    assert not {n for n in names if n.split(".")[0] == "caesar_mrcnn_tpu"}
     tops = {n.split(".")[0] for n in names}
     foreign = tops - set(sys.stdlib_module_names) - {"numpy", "torch", "caesar_mrcnn_tpu_torch"}
     assert not foreign, foreign
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """No module of the port imports ``caesar_mrcnn_tpu`` or a module under
+    it, by absolute import, and the re-export module ``host`` is gone."""
+    pkg = REPO / "caesar_mrcnn_tpu_torch"
+    assert not (pkg / "host.py").exists()
+    offending = []
+    for path in sorted(pkg.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            offending += [f"{path.relative_to(REPO)}: {m}" for m in mods if m.split(".")[0] == "caesar_mrcnn_tpu"]
+    assert not offending, offending
+
+
+def test_build_detector_defaults_to_the_card():
+    from caesar_mrcnn_tpu_torch.inference.detector import build_detector
+
+    assert inspect.signature(build_detector).parameters["device"].default == "cuda"
 
 
 def _assert_refused(proc):

@@ -22,7 +22,6 @@ from caesar_mrcnn_tpu.ops.roi_align import crop_and_resize as jax_crop
 from caesar_mrcnn_tpu.ops.roi_align import multilevel_roi_align_batched
 from caesar_mrcnn_tpu.train import trainer as JTR
 from caesar_mrcnn_tpu.utils import image as jimage
-from caesar_mrcnn_tpu.utils.anchors import get_anchors
 from caesar_mrcnn_tpu_torch import weights as W
 from caesar_mrcnn_tpu_torch.data.generator import TrainingPipeline
 from caesar_mrcnn_tpu_torch.models import losses as TL
@@ -33,7 +32,8 @@ from caesar_mrcnn_tpu_torch.ops.roi_align import crop_and_resize, roi_align, roi
 from caesar_mrcnn_tpu_torch.train import checkpoints as CK
 from caesar_mrcnn_tpu_torch.train import trainer as TR
 from caesar_mrcnn_tpu_torch.utils import image as timage
-from torch_train_fixtures import jax_priorities, seeded_weights, tiny_config, tiny_dataset
+from caesar_mrcnn_tpu_torch.utils.anchors import get_anchors
+from torch_train_fixtures import jax_config, jax_priorities, seeded_weights, tiny_config, tiny_dataset
 
 torch.set_num_threads(2)
 
@@ -153,7 +153,7 @@ def test_build_rpn_targets_equals_jax(case):
     ids = rng.randint(1, 4, n).astype(np.int32)
     if case == "crowd":
         ids[0] = -1
-    ref = JT.build_rpn_targets(anchors, ids, gt, CFG, np.random.RandomState(1))
+    ref = JT.build_rpn_targets(anchors, ids, gt, jax_config(CFG), np.random.RandomState(1))
     got = TT.build_rpn_targets(anchors, ids, gt, CFG, np.random.RandomState(1))
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
@@ -182,7 +182,8 @@ def test_detection_targets_with_jax_priorities(mini):
     props[:, ::3] = _roi_boxes(rng, b, p)[:, ::3]
     props[:, -6:] = 0.0
     key = jax.random.PRNGKey(11)
-    ref = jax.jit(lambda *a: JT.detection_targets_batch(*a, cfg))(
+    jcfg = jax_config(cfg)
+    ref = jax.jit(lambda *a: JT.detection_targets_batch(*a, jcfg))(
         key, jnp.asarray(props), jnp.asarray(gt_ids), jnp.asarray(gt_boxes), jnp.asarray(gt_masks))
     got = TT.detection_targets(torch.from_numpy(props), torch.from_numpy(gt_ids), torch.from_numpy(gt_boxes),
                                torch.from_numpy(gt_masks), cfg, priorities=jax_priorities(key, b, p, cfg))
@@ -233,7 +234,7 @@ def test_losses_equal_jax(mask_loss, weighted):
     from caesar_mrcnn_tpu_torch.models import mask_rcnn as TM
 
     ref = JL.compute_losses(outputs(JM, jnp.asarray), jnp.asarray(d["match"]), jnp.asarray(d["rpn_target"]),
-                            jnp.asarray(d["active"]), cfg, None if cw is None else jnp.asarray(cw))
+                            jnp.asarray(d["active"]), jax_config(cfg), None if cw is None else jnp.asarray(cw))
     got = TL.compute_losses(outputs(TM, torch.from_numpy), torch.from_numpy(d["match"]),
                             torch.from_numpy(d["rpn_target"]), torch.from_numpy(d["active"]), cfg,
                             None if cw is None else torch.from_numpy(cw))
@@ -269,7 +270,7 @@ def test_pipeline_batches_and_mold_equal_jax(dataset, wire):
     different sides; these masks are solid rectangles, whose crops resize
     to exactly 1, so they must be equal."""
     cfg = dataclasses.replace(CFG, train_wire=wire)
-    ref_it = JaxPipeline(dataset, cfg, seed=3, augmentation=True).batches()
+    ref_it = JaxPipeline(dataset, jax_config(cfg), seed=3, augmentation=True).batches()
     got_it = TrainingPipeline(dataset, cfg, seed=3, augmentation=True, cache_bytes=1 << 20).batches()
     for _ in range(3):
         ref, got = next(ref_it), next(got_it)
@@ -277,7 +278,7 @@ def test_pipeline_batches_and_mold_equal_jax(dataset, wire):
         for k in ref:
             assert got[k].dtype == ref[k].dtype, k
             np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
-    jm = jax.device_get(JTR.mold_batch({k: jnp.asarray(v) for k, v in ref.items()}, cfg))
+    jm = jax.device_get(JTR.mold_batch({k: jnp.asarray(v) for k, v in ref.items()}, jax_config(cfg)))
     tm = TR.mold_batch(TR.batch_to_device(got, "cpu"), cfg)
     assert set(tm) == set(jm)
     for k in jm:

@@ -26,10 +26,10 @@ import torch
 from caesar_mrcnn_tpu.data.generator import TrainingPipeline as JaxPipeline
 from caesar_mrcnn_tpu.models.mask_rcnn import MaskRCNN as JaxMaskRCNN
 from caesar_mrcnn_tpu.train.trainer import create_train_state, make_train_step as jax_train_step
-from caesar_mrcnn_tpu.utils.anchors import get_anchors
 from caesar_mrcnn_tpu_torch import weights as W
 from caesar_mrcnn_tpu_torch.train import trainer as TR
-from torch_train_fixtures import jax_priorities, param_errors, seeded_weights, tiny_config, tiny_dataset
+from caesar_mrcnn_tpu_torch.utils.anchors import get_anchors
+from torch_train_fixtures import jax_config, jax_priorities, param_errors, seeded_weights, tiny_config, tiny_dataset
 
 torch.set_num_threads(2)
 
@@ -44,8 +44,8 @@ def _run_both(cfg, layers, batches):
     each step (JAX, port) and the parameters after the last."""
     model, tree = seeded_weights(cfg)
     anchors = get_anchors(cfg)
-    state, tx = create_train_state(cfg, tree, layers)
-    jstep = jax_train_step(JaxMaskRCNN(cfg), tx, anchors)
+    state, tx = create_train_state(jax_config(cfg), tree, layers)
+    jstep = jax_train_step(JaxMaskRCNN(jax_config(cfg)), tx, anchors)
     step = TR.make_train_step(model, TR.make_optimizer(cfg, model, layers), anchors)
     history = []
     for k, batch in enumerate(batches):
@@ -76,7 +76,7 @@ def test_three_step_trajectory_equals_jax(dataset, optimizer, layers, lr):
     """Training on given ROIs (``ext_rois``), so that near-tied proposals
     cannot fork the targets: three steps on three batches."""
     cfg = tiny_config(use_rpn_rois=False, optimizer=optimizer, learning_rate=lr)
-    it = JaxPipeline(dataset, cfg, seed=5).batches()
+    it = JaxPipeline(dataset, jax_config(cfg), seed=5).batches()
     history, got, ref, start = _run_both(cfg, layers, [next(it) for _ in range(3)])
     _check_losses(history)
     assert history[0][0]["mrcnn_mask_loss"] > 0 and history[0][0]["mrcnn_class_loss"] > 0
@@ -92,7 +92,7 @@ def test_full_rpn_path_step_equals_jax(dataset):
     """One SGD step through the RPN proposals and the NMS, on settled
     weights, with the compact wire."""
     cfg = tiny_config(learning_rate=5e-4)
-    history, got, ref, start = _run_both(cfg, "all", [next(JaxPipeline(dataset, cfg, seed=7).batches())])
+    history, got, ref, start = _run_both(cfg, "all", [next(JaxPipeline(dataset, jax_config(cfg), seed=7).batches())])
     _check_losses(history)
     for path, _, bad, _, rel in param_errors(got, ref, start):
         assert bad == 0, (path, rel)

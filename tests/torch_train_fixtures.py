@@ -1,26 +1,32 @@
 """Shared inputs of the training parity tests (``tests/test_torch_train*.py``):
 the tiny training config and FITS dataset of ``tests/test_train.py``, seeded
 weights in both frameworks, and the JAX sampling priorities of a train step.
+The port is given its own config (``caesar_mrcnn_tpu_torch.config``) and the
+JAX package a twin of it with the same fields (:func:`jax_config`).
 """
+
+import dataclasses
+
 
 import jax
 import numpy as np
 import torch
 
-from caesar_mrcnn_tpu.config import detector_config
-from caesar_mrcnn_tpu.data.dataset import SourceDataset
-from caesar_mrcnn_tpu.utils import fits as F
+from caesar_mrcnn_tpu.config import Config as JaxConfig
 from caesar_mrcnn_tpu_torch import weights as W
+from caesar_mrcnn_tpu_torch.config import detector_config
+from caesar_mrcnn_tpu_torch.data.dataset import SourceDataset
 from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
 from caesar_mrcnn_tpu_torch.models.targets import sampling_width
 from caesar_mrcnn_tpu_torch.testing import settle_flax_weights
+from caesar_mrcnn_tpu_torch.utils import fits as F
 
 CLASS_NAMES = ("bkg", "sidelobe", "source", "galaxy")
 
 
 def tiny_config(**overrides):
-    """``tests/test_train.py``'s tiny config: custom backbone, 64^2, 4
-    classes, f32, mini-masks, SGD."""
+    """``tests/test_train.py``'s tiny config, as the port's config: custom
+    backbone, 64^2, 4 classes, f32, mini-masks, SGD."""
     kw = dict(
         backbone="custom", image_min_dim=64, image_max_dim=64, num_classes=4,
         class_names=CLASS_NAMES, images_per_device=2, num_devices=1,
@@ -31,6 +37,11 @@ def tiny_config(**overrides):
     )
     kw.update(overrides)
     return detector_config(**kw)
+
+
+def jax_config(cfg):
+    """The JAX package's config with every field of the port's ``cfg``."""
+    return JaxConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
 
 
 def tiny_dataset(tmp):
