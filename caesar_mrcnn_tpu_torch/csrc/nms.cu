@@ -122,8 +122,9 @@ __device__ __forceinline__ Box sorted_box(const float* __restrict__ boxes,
   return box;
 }
 
-// Per image, between the two phases: kept count, whether the walk is done,
-// and the sorted positions of the kept boxes.
+// Per image, between the two phases: kept count and whether the walk is
+// done. The sorted positions of the kept boxes follow the B states in the
+// same buffer (kept_pos).
 struct SweepState {
   int count;
   int done;

@@ -177,8 +177,8 @@ __global__ void roi_align_kernel(Levels lv, int c, int n,
 // 7 in bf16) read once and the gradients written once, ~0.04 ms. A first
 // redesign merged the taps of a box in shared memory with f32 atomicAdd,
 // which sm_90 compiles to a compare-and-swap loop (ATOMS.CAST.SPIN). This
-// design has no atomics in shared memory and is 5-33% faster than that
-// one, but still 0.25-0.35 ms at the training shapes (PERF.md). What
+// design has no atomics in shared memory and is 9-53% faster than that
+// one, but still 0.17-0.35 ms at the training shapes (PERF.md). What
 // holds it there is not measured yet: each footprint pixel of each box
 // still reaches device memory through a float4 atomic, and the training
 // ROIs overlap (about 40 per source).
@@ -189,25 +189,30 @@ __global__ void roi_align_kernel(Levels lv, int c, int n,
 //  - One block per box, 256 threads. The block finds the box's footprint
 //    on its level (the bounding rows and columns of its inside taps) and,
 //    for each footprint row and column, the range of samples whose taps
-//    touch it.
-//  - Column pass: for each sample row, footprint column and four channels,
-//    one thread sums the row's samples that touch the column, weighted by
-//    their column weights, reading grad_out with 8- or 16-byte loads
-//    (lanes on neighbouring channels), into a shared tile [pool][fw][4 ch].
-//  - Row pass: for each footprint pixel and four channels, one thread sums
-//    the tile rows that touch the pixel's row, weighted by their row
-//    weights, and adds the result to device memory once, with one 16-byte
-//    vector atomicAdd (float4, sm_90).
-//  - Channels go in passes of as many as the 40 KB tile holds. A box whose
-//    footprint is wider or taller than 2 * pool has few repeated taps: it
-//    takes a direct path, each thread adding four channels of one sample
-//    to its four taps with float4 atomics.
+//    touch it and their weights along that axis, in shared memory.
+//  - Column pass: for each sample row and footprint column, one thread
+//    sums the row's samples that touch the column, weighted, for two
+//    quads of channels (lanes on neighbouring quads, 8- or 16-byte loads
+//    of grad_out), into a shared tile [pool][fw][channels].
+//  - Row pass: for each footprint pixel, one thread sums the tile rows
+//    that touch the pixel's row, weighted, and adds each quad to device
+//    memory once, with one 16-byte vector atomicAdd (float4, sm_90).
+//  - A thread walks its items with running indices (no division per
+//    item) and shares each weight and loop step between its two quads:
+//    fewer instructions per item took 0.01-0.07 ms off each call against
+//    one quad per thread with a division per item (PERF.md).
+//  - Channels go in passes of as many as the 32 KB tile holds. A box whose
+//    footprint is wider or taller than 2 * pool has few repeated taps, and
+//    pools above kBwdReach do not fit the weight tables: those take a
+//    direct path, each thread adding four channels of one sample to its
+//    four taps with float4 atomics.
 // Boxes add to device memory in any order, so the f32 rounding varies from
 // run to run; and the separable sums round differently from the forward's
 // tap weights (products of the two), well inside the test's 1e-5 of each
 // element's absolute-contribution sum.
 constexpr int kBwdThreads = 256;
-constexpr int kBwdTile = 10240;  // floats of the column-pass tile (40 KB)
+constexpr int kBwdTile = 8192;  // floats of the column-pass tile (32 KB)
+constexpr int kBwdReach = 16;  // samples that can touch one footprint row or column (pool <= 16)
 
 // Four consecutive channels as floats (16-byte or 8-byte load).
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -254,7 +259,8 @@ roi_align_backward_kernel(Levels grads, int c, int n,
   __shared__ Tap taps[2][kMaxPool];
   __shared__ __align__(16) float4 tile[kBwdTile / 4];  // [pool][fw][channels / 4]
   __shared__ int span[4];  // first and last tap row, first and last tap column
-  __shared__ int2 touch[2][2 * kMaxPool];  // per footprint row / column: samples [x, y) touching it
+  __shared__ int2 touch[2][2 * kBwdReach];  // per footprint row / column: samples [x, y) touching it
+  __shared__ float weight[2][2 * kBwdReach][kBwdReach];  // their weights, from touch[].x on
 
   const int box = blockIdx.x;
   const int b = box / n;
@@ -282,7 +288,7 @@ roi_align_backward_kernel(Levels grads, int c, int n,
   const int fh = span[1] - y0 + 1, fw = span[3] - x0 + 1;
   const T* go = grad_out + (size_t)box * pool * pool * c;
 
-  if (fh > 2 * pool || fw > 2 * pool) {  // direct path
+  if (fh > 2 * pool || fw > 2 * pool || pool > kBwdReach) {  // direct path
     const int quads = c >> 2;
     const int samples = pool * pool;
     for (int i = threadIdx.x; i < samples * quads; i += blockDim.x) {
@@ -314,44 +320,63 @@ roi_align_backward_kernel(Levels grads, int c, int n,
         end = p + 1;
       }
     }
-    touch[axis][axis == 0 ? k : k - fh] = make_int2(first, end);
+    const int e = axis == 0 ? k : k - fh;
+    touch[axis][e] = make_int2(first, end);
+    for (int p = first; p < end; ++p) {
+      const Tap t = taps[axis][p];
+      weight[axis][e][p - first] = t.inside ? axis_weight(t, v) : 0.0f;
+    }
   }
   __syncthreads();
 
   // channels per pass: a multiple of 4 that the tile holds (fw <= 2 * pool)
-  const int cpass = min(c, (kBwdTile / (pool * fw)) & ~3);
+  const int cpass = min(min(c, 8 * kBwdThreads), (kBwdTile / (pool * fw)) & ~3);
   for (int c0 = 0; c0 < c; c0 += cpass) {
+    // Each thread keeps two quads of channels (q and q + half) and walks the
+    // pass's items (row, footprint column) in steps of `groups`.
     const int quads = min(cpass, c - c0) >> 2;
-    for (int i = threadIdx.x; i < pool * fw * quads; i += blockDim.x) {  // column pass
-      const int q = i % quads;
-      const int r = i / quads;
-      const int x = r % fw, py = r / fw;
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (taps[0][py].inside) {
-        const T* src = go + (size_t)py * pool * c + c0 + (q << 2);
-        const int2 rg = touch[1][x];
-        for (int p = rg.x; p < rg.y; ++p) {
-          const Tap t = taps[1][p];
-          const float k = t.inside ? axis_weight(t, x0 + x) : 0.0f;
-          if (k != 0.0f) acc4(acc, load4(src + (size_t)p * c), k);
+    const int half = (quads + 1) >> 1;
+    const int groups = blockDim.x / half;
+    const int q = threadIdx.x % half, first = threadIdx.x / half;
+    const bool two = q + half < quads;
+    if (first < groups) {  // column pass: [sample row][footprint column]
+      for (int r = first, py = 0, x = first; r < pool * fw; r += groups, x += groups) {
+        while (x >= fw) x -= fw, ++py;
+        float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0;
+        if (taps[0][py].inside) {
+          const int2 rg = touch[1][x];
+          const float* wk = weight[1][x];
+          const T* src = go + ((size_t)py * pool + rg.x) * c + c0 + (q << 2);
+          for (int j = 0; j < rg.y - rg.x; ++j, src += c) {
+            const float k = wk[j];
+            if (k == 0.0f) continue;
+            acc4(a0, load4(src), k);
+            if (two) acc4(a1, load4(src + (half << 2)), k);
+          }
         }
+        tile[r * quads + q] = a0;
+        if (two) tile[r * quads + q + half] = a1;
       }
-      tile[i] = acc;
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < fh * fw * quads; i += blockDim.x) {  // row pass
-      const int q = i % quads;
-      const int r = i / quads;
-      const int x = r % fw, y = r / fw;
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      const int2 rg = touch[0][y];
-      for (int p = rg.x; p < rg.y; ++p) {
-        const Tap t = taps[0][p];
-        const float k = t.inside ? axis_weight(t, y0 + y) : 0.0f;
-        if (k != 0.0f) acc4(acc, tile[(p * fw + x) * quads + q], k);
+    if (first < groups) {  // row pass: [footprint row][footprint column]
+      for (int r = first, y = 0, x = first; r < fh * fw; r += groups, x += groups) {
+        while (x >= fw) x -= fw, ++y;
+        float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0;
+        const int2 rg = touch[0][y];
+        const float* wk = weight[0][y];
+        const float4* col = tile + (rg.x * fw + x) * quads + q;
+        for (int j = 0; j < rg.y - rg.x; ++j, col += fw * quads) {
+          const float k = wk[j];
+          if (k == 0.0f) continue;
+          acc4(a0, col[0], k);
+          if (two) acc4(a1, col[half], k);
+        }
+        float* dst = g + ((size_t)(y0 + y) * w + x0 + x) * c + c0 + (q << 2);
+        if (a0.x != 0.0f || a0.y != 0.0f || a0.z != 0.0f || a0.w != 0.0f) add4(dst, a0);
+        if (two && (a1.x != 0.0f || a1.y != 0.0f || a1.z != 0.0f || a1.w != 0.0f))
+          add4(dst + (half << 2), a1);
       }
-      if (acc.x != 0.0f || acc.y != 0.0f || acc.z != 0.0f || acc.w != 0.0f)
-        add4(g + ((size_t)(y0 + y) * w + x0 + x) * c + c0 + (q << 2), acc);
     }
     __syncthreads();  // the next pass rewrites the tile
   }

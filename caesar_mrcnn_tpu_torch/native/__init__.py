@@ -71,6 +71,7 @@ def _build(out: Path) -> bool:
             os.replace(tmp, out)  # atomic: a reader never sees a partial file
             return True
         except (OSError, subprocess.SubprocessError) as e:
+            tmp.unlink(missing_ok=True)
             logger.debug("native build failed: %s", e)
             return False
 
