@@ -178,7 +178,8 @@ __global__ void roi_align_kernel(Levels lv, int c, int n,
 // redesign merged the taps of a box in shared memory with f32 atomicAdd,
 // which sm_90 compiles to a compare-and-swap loop (ATOMS.CAST.SPIN). This
 // design has no atomics in shared memory and is 9-53% faster than that
-// one, but still 0.17-0.35 ms at the training shapes (PERF.md). What
+// one, but still 0.10-0.35 ms at the training shapes (0.10-0.20 ms on a
+// real train step's ROIs; PERF.md). What
 // holds it there is not measured yet: each footprint pixel of each box
 // still reaches device memory through a float4 atomic, and the training
 // ROIs overlap (about 40 per source).
@@ -206,6 +207,8 @@ __global__ void roi_align_kernel(Levels lv, int c, int n,
 //    pools above kBwdReach do not fit the weight tables: those take a
 //    direct path, each thread adding four channels of one sample to its
 //    four taps with float4 atomics.
+//  - A channel count that is even but not a multiple of 4 runs the same
+//    code on pairs of channels (V = 2: 4- or 8-byte loads, float2 atomics).
 // Boxes add to device memory in any order, so the f32 rounding varies from
 // run to run; and the separable sums round differently from the forward's
 // tap weights (products of the two), well inside the test's 1e-5 of each
@@ -213,31 +216,83 @@ __global__ void roi_align_kernel(Levels lv, int c, int n,
 constexpr int kBwdThreads = 256;
 constexpr int kBwdTile = 8192;  // floats of the column-pass tile (32 KB)
 constexpr int kBwdReach = 16;  // samples that can touch one footprint row or column (pool <= 16)
+// Blocks per SM: the ~38 KB of shared memory of a block lets five share an
+// SM, and the registers must let them too (at most 48 per thread). Without
+// the bound the f32 quad kernel took 52, four blocks fitted, and the train
+// step's ROIs took 12-24% longer (PERF.md).
+constexpr int kBwdBlocksPerSM = 5;
 
-// Four consecutive channels as floats (16-byte or 8-byte load).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
+// V consecutive channels as floats (V = 4: a quad; V = 2: a pair).
+template <int V>
+struct alignas(4 * V) Lanes {
+  float v[V];
+};
 
-__device__ __forceinline__ float4 scale4(float4 v, float k) {
-  return make_float4(__fmul_rn(v.x, k), __fmul_rn(v.y, k), __fmul_rn(v.z, k), __fmul_rn(v.w, k));
-}
-
-__device__ __forceinline__ void acc4(float4& a, float4 v, float k) {
-  a.x = __fadd_rn(a.x, __fmul_rn(v.x, k));
-  a.y = __fadd_rn(a.y, __fmul_rn(v.y, k));
-  a.z = __fadd_rn(a.z, __fmul_rn(v.z, k));
-  a.w = __fadd_rn(a.w, __fmul_rn(v.w, k));
+template <int V>
+__device__ __forceinline__ Lanes<V> zero_lanes() {
+  Lanes<V> a;
+#pragma unroll
+  for (int i = 0; i < V; ++i) a.v[i] = 0.0f;
+  return a;
 }
 
-__device__ __forceinline__ void add4(float* p, float4 v) {
-  atomicAdd(reinterpret_cast<float4*>(p), v);
+// One 4V-byte load of f32, or one 2V-byte load of bf16.
+template <int V>
+__device__ __forceinline__ Lanes<V> load_lanes(const float* p) {
+  Lanes<V> a;
+  if constexpr (V == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    a.v[0] = f.x, a.v[1] = f.y, a.v[2] = f.z, a.v[3] = f.w;
+  } else {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    a.v[0] = f.x, a.v[1] = f.y;
+  }
+  return a;
+}
+template <int V>
+__device__ __forceinline__ Lanes<V> load_lanes(const __nv_bfloat16* p) {
+  Lanes<V> a;
+  if constexpr (V == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 e = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    a.v[0] = f.x, a.v[1] = f.y, a.v[2] = e.x, a.v[3] = e.y;
+  } else {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    a.v[0] = f.x, a.v[1] = f.y;
+  }
+  return a;
+}
+
+template <int V>
+__device__ __forceinline__ Lanes<V> scale_lanes(Lanes<V> v, float k) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) v.v[i] = __fmul_rn(v.v[i], k);
+  return v;
+}
+
+template <int V>
+__device__ __forceinline__ void acc_lanes(Lanes<V>& a, const Lanes<V>& v, float k) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) a.v[i] = __fadd_rn(a.v[i], __fmul_rn(v.v[i], k));
+}
+
+template <int V>
+__device__ __forceinline__ bool any_lanes(const Lanes<V>& a) {
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < V; ++i) any |= a.v[i] != 0.0f;
+  return any;
+}
+
+// One vector atomicAdd to device memory (float4 or float2, sm_90).
+template <int V>
+__device__ __forceinline__ void add_lanes(float* p, const Lanes<V>& v) {
+  if constexpr (V == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v.v[0], v.v[1], v.v[2], v.v[3]));
+  } else {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v.v[0], v.v[1]));
+  }
 }
 
 // The weight sample tap t gives pixel v along its axis: 1 - w at tap 0, w
@@ -249,18 +304,20 @@ __device__ __forceinline__ float axis_weight(const Tap& t, int v) {
   return k;
 }
 
-// grid B*N, block kBwdThreads.
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
+// grid B*N, block kBwdThreads; C a multiple of V.
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
 roi_align_backward_kernel(Levels grads, int c, int n,
                           const float* __restrict__ boxes,
                           const int32_t* __restrict__ levels, int pool,
                           const T* __restrict__ grad_out) {
+  using L = Lanes<V>;
   __shared__ Tap taps[2][kMaxPool];
-  __shared__ __align__(16) float4 tile[kBwdTile / 4];  // [pool][fw][channels / 4]
+  __shared__ __align__(16) float tile_f[kBwdTile];  // [pool][fw][channels / V]
   __shared__ int span[4];  // first and last tap row, first and last tap column
   __shared__ int2 touch[2][2 * kBwdReach];  // per footprint row / column: samples [x, y) touching it
   __shared__ float weight[2][2 * kBwdReach][kBwdReach];  // their weights, from touch[].x on
+  L* tile = reinterpret_cast<L*>(tile_f);
 
   const int box = blockIdx.x;
   const int b = box / n;
@@ -289,22 +346,22 @@ roi_align_backward_kernel(Levels grads, int c, int n,
   const T* go = grad_out + (size_t)box * pool * pool * c;
 
   if (fh > 2 * pool || fw > 2 * pool || pool > kBwdReach) {  // direct path
-    const int quads = c >> 2;
+    const int vecs = c / V;
     const int samples = pool * pool;
-    for (int i = threadIdx.x; i < samples * quads; i += blockDim.x) {
-      const int s = i / quads;
-      const int ch = (i - s * quads) << 2;
+    for (int i = threadIdx.x; i < samples * vecs; i += blockDim.x) {
+      const int s = i / vecs;
+      const int ch = (i - s * vecs) * V;
       const Tap ty = taps[0][s / pool];
       const Tap tx = taps[1][s % pool];
       if (!(ty.inside && tx.inside)) continue;
       const Corners k = corners(ty.w, tx.w);
-      const float4 d = load4(go + (size_t)s * c + ch);
+      const L d = load_lanes<V>(go + (size_t)s * c + ch);
       float* row0 = g + (size_t)ty.lo * w * c + ch;
       float* row1 = g + (size_t)ty.hi * w * c + ch;
-      add4(row0 + (size_t)tx.lo * c, scale4(d, k.w00));
-      add4(row0 + (size_t)tx.hi * c, scale4(d, k.w01));
-      add4(row1 + (size_t)tx.lo * c, scale4(d, k.w10));
-      add4(row1 + (size_t)tx.hi * c, scale4(d, k.w11));
+      add_lanes<V>(row0 + (size_t)tx.lo * c, scale_lanes<V>(d, k.w00));
+      add_lanes<V>(row0 + (size_t)tx.hi * c, scale_lanes<V>(d, k.w01));
+      add_lanes<V>(row1 + (size_t)tx.lo * c, scale_lanes<V>(d, k.w10));
+      add_lanes<V>(row1 + (size_t)tx.hi * c, scale_lanes<V>(d, k.w11));
     }
     return;
   }
@@ -329,64 +386,71 @@ roi_align_backward_kernel(Levels grads, int c, int n,
   }
   __syncthreads();
 
-  // channels per pass: a multiple of 4 that the tile holds (fw <= 2 * pool)
-  const int cpass = min(min(c, 8 * kBwdThreads), (kBwdTile / (pool * fw)) & ~3);
+  // channels per pass: a multiple of V that the tile holds (fw <= 2 * pool)
+  const int cpass = min(min(c, 2 * V * kBwdThreads), (kBwdTile / (pool * fw)) & ~(V - 1));
   for (int c0 = 0; c0 < c; c0 += cpass) {
-    // Each thread keeps two quads of channels (q and q + half) and walks the
-    // pass's items (row, footprint column) in steps of `groups`.
-    const int quads = min(cpass, c - c0) >> 2;
-    const int half = (quads + 1) >> 1;
+    // Each thread keeps two vectors of channels (q and q + half) and walks
+    // the pass's items (row, footprint column) in steps of `groups`.
+    const int vecs = min(cpass, c - c0) / V;
+    const int half = (vecs + 1) >> 1;
     const int groups = blockDim.x / half;
     const int q = threadIdx.x % half, first = threadIdx.x / half;
-    const bool two = q + half < quads;
+    const bool two = q + half < vecs;
     if (first < groups) {  // column pass: [sample row][footprint column]
       for (int r = first, py = 0, x = first; r < pool * fw; r += groups, x += groups) {
         while (x >= fw) x -= fw, ++py;
-        float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0;
+        L a0 = zero_lanes<V>(), a1 = a0;
         if (taps[0][py].inside) {
           const int2 rg = touch[1][x];
           const float* wk = weight[1][x];
-          const T* src = go + ((size_t)py * pool + rg.x) * c + c0 + (q << 2);
+          const T* src = go + ((size_t)py * pool + rg.x) * c + c0 + q * V;
           for (int j = 0; j < rg.y - rg.x; ++j, src += c) {
             const float k = wk[j];
             if (k == 0.0f) continue;
-            acc4(a0, load4(src), k);
-            if (two) acc4(a1, load4(src + (half << 2)), k);
+            acc_lanes<V>(a0, load_lanes<V>(src), k);
+            if (two) acc_lanes<V>(a1, load_lanes<V>(src + half * V), k);
           }
         }
-        tile[r * quads + q] = a0;
-        if (two) tile[r * quads + q + half] = a1;
+        tile[r * vecs + q] = a0;
+        if (two) tile[r * vecs + q + half] = a1;
       }
     }
     __syncthreads();
     if (first < groups) {  // row pass: [footprint row][footprint column]
       for (int r = first, y = 0, x = first; r < fh * fw; r += groups, x += groups) {
         while (x >= fw) x -= fw, ++y;
-        float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0;
+        L a0 = zero_lanes<V>(), a1 = a0;
         const int2 rg = touch[0][y];
         const float* wk = weight[0][y];
-        const float4* col = tile + (rg.x * fw + x) * quads + q;
-        for (int j = 0; j < rg.y - rg.x; ++j, col += fw * quads) {
+        const L* col = tile + (rg.x * fw + x) * vecs + q;
+        for (int j = 0; j < rg.y - rg.x; ++j, col += fw * vecs) {
           const float k = wk[j];
           if (k == 0.0f) continue;
-          acc4(a0, col[0], k);
-          if (two) acc4(a1, col[half], k);
+          acc_lanes<V>(a0, col[0], k);
+          if (two) acc_lanes<V>(a1, col[half], k);
         }
-        float* dst = g + ((size_t)(y0 + y) * w + x0 + x) * c + c0 + (q << 2);
-        if (a0.x != 0.0f || a0.y != 0.0f || a0.z != 0.0f || a0.w != 0.0f) add4(dst, a0);
-        if (two && (a1.x != 0.0f || a1.y != 0.0f || a1.z != 0.0f || a1.w != 0.0f))
-          add4(dst + (half << 2), a1);
+        float* dst = g + ((size_t)(y0 + y) * w + x0 + x) * c + c0 + q * V;
+        if (any_lanes<V>(a0)) add_lanes<V>(dst, a0);
+        if (two && any_lanes<V>(a1)) add_lanes<V>(dst + half * V, a1);
       }
     }
     __syncthreads();  // the next pass rewrites the tile
   }
 }
 
+template <typename T, int V>
+void launch_backward(unsigned int blocks, cudaStream_t s, const Levels& lv, int c,
+                     int n, const float* boxes, const int32_t* levels, int pool,
+                     const void* grad_out) {
+  roi_align_backward_kernel<T, V><<<blocks, kBwdThreads, 0, s>>>(
+      lv, c, n, boxes, levels, pool, static_cast<const T*>(grad_out));
+}
+
 }  // namespace
 
 // grad_out: [B, N, pool, pool, C] in dtype (0 = float32, 1 = bfloat16),
-// C a multiple of 4; g2..g5: f32 level gradients [B, H_l, W_l, C], 16-byte
-// aligned, zeroed, accumulated into.
+// C even, 16-byte aligned; g2..g5: f32 level gradients [B, H_l, W_l, C],
+// 8-byte aligned (16 where 4 divides C), zeroed, accumulated into.
 extern "C" int caesar_roi_align_backward(void* g2, void* g3, void* g4, void* g5,
                                          int h2, int w2, int h3, int w3,
                                          int h4, int w4, int h5, int w5,
@@ -399,17 +463,16 @@ extern "C" int caesar_roi_align_backward(void* g2, void* g3, void* g4, void* g5,
   lv.ptr[0] = g2; lv.ptr[1] = g3; lv.ptr[2] = g4; lv.ptr[3] = g5;
   lv.h[0] = h2; lv.h[1] = h3; lv.h[2] = h4; lv.h[3] = h5;
   lv.w[0] = w2; lv.w[1] = w3; lv.w[2] = w4; lv.w[3] = w5;
-  if (pool < 2 || pool > kMaxPool || (c & 3)) return (int)cudaErrorInvalidValue;
-  const int threads = kBwdThreads;
+  if (pool < 2 || pool > kMaxPool || (c & 1)) return (int)cudaErrorInvalidValue;
   const unsigned int blocks = (unsigned int)batch * (unsigned int)n;
   if (blocks == 0) return (int)cudaSuccess;
+  const bool quads = (c & 3) == 0;
   if (dtype == 0) {
-    roi_align_backward_kernel<float><<<blocks, threads, 0, s>>>(
-        lv, c, n, boxes, levels, pool, static_cast<const float*>(grad_out));
+    (quads ? launch_backward<float, 4> : launch_backward<float, 2>)(
+        blocks, s, lv, c, n, boxes, levels, pool, grad_out);
   } else if (dtype == 1) {
-    roi_align_backward_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        lv, c, n, boxes, levels, pool,
-        static_cast<const __nv_bfloat16*>(grad_out));
+    (quads ? launch_backward<__nv_bfloat16, 4> : launch_backward<__nv_bfloat16, 2>)(
+        blocks, s, lv, c, n, boxes, levels, pool, grad_out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -4,14 +4,19 @@
 here. Run as a script on the machine with the card, from the repository
 root, it splits each NMS and ROIAlign-backward call into the device
 kernels it launches (``torch.profiler``) and times the whole call (CUDA
-events), optionally beside another checkout of the port:
+events, median of :data:`REPS`), optionally beside another checkout of
+the port:
 
-    python3 -m caesar_mrcnn_tpu_torch.kernel_bench [--parent DIR] [--reps 20] [--json PATH]
+    python3 -m caesar_mrcnn_tpu_torch.kernel_bench [--parent DIR] [--json PATH]
 
 ``--parent DIR`` loads ``DIR/caesar_mrcnn_tpu_torch`` as a second package
 and measures both in turns (parent, change, change, parent) in one
 process, on one card. A summary goes to stdout; ``--json PATH`` also
 writes every record, with each call's full kernel split.
+
+Its cases are seeded, and the boxes of one real flagship train step: the
+RPN's boxes and scores before NMS and the sampled ROIs, which
+``chip_smoke.py`` saves to ``build/train_step_boxes.pt`` (run it first).
 
 Bounds: the least time the card could take for the work, the larger of the
 bytes the function must move (each input read once, each output written
@@ -40,6 +45,8 @@ PEAK_F32_PER_S = 67e12
 NMS_OPS_PER_PAIR = 20
 
 SEED = 0
+REPS = 20  # timed calls per median
+TRAIN_STEP_BOXES = Path(__file__).resolve().parent.parent / "build" / "train_step_boxes.pt"
 
 
 def card() -> str:
@@ -129,21 +136,6 @@ def roi_case(rng, b: int, n: int):
     return boxes.astype(np.float32)
 
 
-def source_roi_case(rng, b: int, n: int, sources: int = 12, image: int = 256):
-    """ROIs as a training step samples them: around ``sources`` sources of
-    8..40 pixels per image of ``image`` pixels, each ROI a source box moved
-    and scaled by up to 30% of its size; they all map to P2 and overlap."""
-    cy, cx = rng.uniform(24, image - 24, (2, b, sources))
-    hh, ww = rng.uniform(8, 40, (2, b, sources))
-    pick = rng.randint(0, sources, (b, n))
-    take = lambda a: np.take_along_axis(a, pick, 1)  # noqa: E731
-    cy, cx, hh, ww = take(cy), take(cx), take(hh), take(ww)
-    cy, cx = cy + hh * rng.uniform(-0.3, 0.3, (b, n)), cx + ww * rng.uniform(-0.3, 0.3, (b, n))
-    hh, ww = hh * rng.uniform(0.7, 1.3, (b, n)), ww * rng.uniform(0.7, 1.3, (b, n))
-    boxes = np.stack([cy - hh / 2, cx - ww / 2, cy + hh / 2, cx + ww / 2], -1) / image
-    return np.clip(boxes, 0.0, 1.0).astype(np.float32)
-
-
 # NMS: the detect path's RPN (1000 kept) and per-class detection NMS, the
 # train path's RPN (2000 kept): (B, N, threshold, max_output, class offset)
 NMS_CASES = ((8, 6000, 0.9, 1000, False), (8, 1000, 0.3, 300, True), (8, 6000, 0.9, 2000, False))
@@ -224,15 +216,20 @@ def load_tree(path: str, alias: str):
 def _cases(dev):
     import torch
 
+    if not TRAIN_STEP_BOXES.exists():
+        raise SystemExit(f"kernel_bench: no {TRAIN_STEP_BOXES}; python3 chip_smoke.py saves a train step's boxes there")
+    step = torch.load(TRAIN_STEP_BOXES)
     rng = np.random.RandomState(SEED)
-    cases = []
-    for b, n, thr, max_out, classes in NMS_CASES:
-        boxes, scores = (torch.from_numpy(a).to(dev) for a in nms_case(rng, b, n, classes))
-        name = f"nms B={b} N={n} thr={thr} max_output={max_out}"
-        cases.append((name, "nms", (boxes, scores, max_out, thr), None))
+    nms = [(f"nms B={b} N={n} thr={thr} max_output={max_out}" + (" class offset" if classes else ""),
+            *(torch.from_numpy(a).to(dev) for a in nms_case(rng, b, n, classes)), max_out, thr)
+           for b, n, thr, max_out, classes in NMS_CASES]
+    boxes, scores, max_out, thr = step["nms"]
+    nms.append((f"nms train-step RPN B={boxes.shape[0]} N={boxes.shape[1]} thr={thr} max_output={max_out}",
+                boxes.to(dev), scores.to(dev), max_out, thr))
+    cases = [(name, "nms", inputs, None) for name, *inputs in nms]
     for b, n, pool, c in BACKWARD_CASES:
-        for label, make in (("seeded", roi_case), ("around sources", source_roi_case)):
-            boxes = torch.from_numpy(make(rng, b, n)).to(dev)
+        for label, boxes in (("seeded", torch.from_numpy(roi_case(rng, b, n))), ("train-step", step["rois"][pool])):
+            boxes = boxes.to(dev)
             for dtype in (torch.bfloat16, torch.float32):
                 grad = torch.from_numpy(rng.randn(b, n, pool, pool, c).astype(np.float32)).to(dev, dtype)
                 name = f"roi_align_backward {label} {str(dtype)[6:]} B={b} N={n} pool={pool} C={c}"
@@ -246,7 +243,6 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="another checkout whose port is measured beside this one")
-    ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--json", help="write the records here as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -273,12 +269,12 @@ def main(argv=None) -> None:
         rec = {"case": case, "bound_ms": bound_ms, "bound_by": bound_by, "ms": {k: [] for k in trees}}
         for label in order:
             fn = ops[label][kind]
-            rec["ms"][label].append(median_ms(lambda: fn(*inputs), args.reps))
-        rec["split"] = {label: device_split(lambda: ops[label][kind](*inputs), args.reps) for label in trees}
+            rec["ms"][label].append(median_ms(lambda: fn(*inputs), REPS))
+        rec["split"] = {label: device_split(lambda: ops[label][kind](*inputs), REPS) for label in trees}
         for label in trees:
             split = rec["split"][label]
             top = sorted(split.items(), key=lambda kv: -kv[1])
-            print(f"{case} [{label}]: {' / '.join(f'{t:.4f}' for t in rec['ms'][label])} ms (median of {args.reps}, "
+            print(f"{case} [{label}]: {' / '.join(f'{t:.4f}' for t in rec['ms'][label])} ms (median of {REPS}, "
                   f"CUDA events); kernels {sum(split.values()):.4f} ms: "
                   + "; ".join(f"{k[:60]} {v:.4f}" for k, v in top[:6])
                   + f"; bound {bound_ms:.4f} ms ({bound_by}) [{name}]")

@@ -22,7 +22,7 @@ training, samples the same way on one GT mask channel per box
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -109,14 +109,13 @@ def roi_align_plain(
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check_kernel_shapes(name, dtype, c, pool, n_levels, multiple=2):
+def _check_kernel_shapes(name, dtype, c, pool, n_levels):
     if n_levels != 4:
         raise ValueError(f"{name} kernel takes exactly 4 levels (P2..P5)")
     if dtype not in _DTYPES:
         raise TypeError(f"{name} kernel takes float32 or bfloat16, got {dtype}")
-    if c % multiple or not 2 <= pool <= 32:
-        need = "even C" if multiple == 2 else f"C a multiple of {multiple}"
-        raise ValueError(f"{name} kernel needs {need} and 2 <= pool <= 32 (C={c}, pool={pool})")
+    if c % 2 or not 2 <= pool <= 32:
+        raise ValueError(f"{name} kernel needs even C and 2 <= pool <= 32 (C={c}, pool={pool})")
 
 
 def _roi_align_cuda(features, boxes, levels, pool):
@@ -144,21 +143,20 @@ def _roi_align_cuda(features, boxes, levels, pool):
 
 class _RoiAlignCuda(torch.autograd.Function):
     """The forward kernel with the backward kernel as its gradient; boxes
-    carry no gradient (the training graph detaches its ROIs). The backward
-    reuses the forward's levels."""
+    carry no gradient (the training graph detaches its ROIs)."""
 
     @staticmethod
     def forward(ctx, boxes, image_shape, pool, *features):
         levels = roi_levels(boxes, float(image_shape[0] * image_shape[1]), 4).contiguous()
-        ctx.save_for_backward(boxes, levels)
+        ctx.save_for_backward(boxes)
         ctx.image_shape = image_shape
         ctx.level_shapes = [tuple(f.shape[1:3]) for f in features]
         return _roi_align_cuda(features, boxes, levels, pool)
 
     @staticmethod
     def backward(ctx, grad):
-        boxes, levels = ctx.saved_tensors
-        grads = roi_align_backward(grad.contiguous(), boxes, ctx.level_shapes, ctx.image_shape, levels=levels)
+        (boxes,) = ctx.saved_tensors
+        grads = roi_align_backward(grad.contiguous(), boxes, ctx.level_shapes, ctx.image_shape)
         return (None, None, None, *grads)
 
 
@@ -224,7 +222,7 @@ def roi_align_backward_plain(
 def _roi_align_backward_cuda(grad_out, boxes, level_shapes, levels):
     b, n, pool, _, c = grad_out.shape
     dtype = grad_out.dtype
-    _check_kernel_shapes("roi_align_backward", dtype, c, pool, len(level_shapes), multiple=4)
+    _check_kernel_shapes("roi_align_backward", dtype, c, pool, len(level_shapes))
     if grad_out.data_ptr() % 16:
         raise ValueError("roi_align_backward kernel needs a 16-byte aligned grad_out")
     sizes = [b * h * w * c for h, w in level_shapes]
@@ -247,7 +245,6 @@ def roi_align_backward(
     boxes: torch.Tensor,
     level_shapes: Sequence[Tuple[int, int]],
     image_shape: Tuple[int, int],
-    levels: Optional[torch.Tensor] = None,
 ) -> List[torch.Tensor]:
     """Gradient of :func:`roi_align` in the levels.
 
@@ -256,8 +253,6 @@ def roi_align_backward(
       boxes: [B, N, 4] float32, the forward's boxes.
       level_shapes: (H_l, W_l) of P2..P5.
       image_shape: (H, W) of the network input, for the level rule.
-      levels: the forward's [B, N] int32 :func:`roi_levels` of ``boxes``,
-        where the caller has them (the autograd path); else computed here.
 
     Returns one [B, H_l, W_l, C] gradient per level, in grad_out's dtype.
     CUDA tensors run the kernel (one launch, counted in
@@ -276,11 +271,8 @@ def roi_align_backward(
     if grad_out.device.type != "cuda":
         raise RuntimeError(f"roi_align_backward: no kernel for device {grad_out.device}")
     boxes = boxes.contiguous()
-    if levels is None:
-        levels = roi_levels(boxes, float(image_shape[0] * image_shape[1]), len(level_shapes))
-    return _roi_align_backward_cuda(
-        grad_out.contiguous(), boxes, [tuple(s) for s in level_shapes], levels.to(torch.int32).contiguous()
-    )
+    levels = roi_levels(boxes, float(image_shape[0] * image_shape[1]), len(level_shapes)).contiguous()
+    return _roi_align_backward_cuda(grad_out.contiguous(), boxes, [tuple(s) for s in level_shapes], levels)
 
 
 roi_align_backward.launches = 0

@@ -26,7 +26,8 @@ Phases, one line each:
    seeded 16-image FITS dataset read through ``SourceDataset`` and the
    port's ``TrainingPipeline`` (compact wire); then NMS and the ROIAlign
    backward against their plain versions on the boxes of the last step
-   (its RPN boxes before NMS, its sampled ROIs);
+   (its RPN boxes before NMS, its sampled ROIs), which are saved to
+   ``build/train_step_boxes.pt`` for ``caesar_mrcnn_tpu_torch/kernel_bench.py``;
 7. train parity: one f32 SGD step of ResNet-101 at batch 2, 128^2, on the
    card and on the CPU from the same weights, batch and priorities: losses
    and gradients.
@@ -168,7 +169,7 @@ def nms_against_plain(rec: dict, boxes, scores, max_out: int, thr: float, label:
     if not (torch.equal(ki, pi.to(ki.dtype)) and torch.equal(kv, pv)):
         bad = int((ki != pi).sum() + (kv != pv).sum())
         raise AssertionError(f"nms {label}: {bad} entries differ from the plain version")
-    ms, plain_ms = kb.median_ms(kernel, 20), kb.median_ms(plain, 3)
+    ms, plain_ms = kb.median_ms(kernel, kb.REPS), kb.median_ms(plain, 3)
     bound = kb.nms_bound(b, n, max_out, kb.nms_pairs(scores, ki, kv, max_out))
     print(f"kernels: nms {label} B={b} N={n} thr={thr} max_output={max_out}: idx/valid equal "
           f"({int(kv.sum())} kept); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events); "
@@ -225,7 +226,7 @@ def check_roi_align(dev, rng, card_name: str) -> dict:
             raise AssertionError(f"roi_align {image}^2 N={n} pool={pool}: beyond 1 bf16 ulp, "
                                  f"max abs {float(diff.max())}")
         err = float(diff.max())
-        ms, plain_ms = kb.median_ms(kernel, 20), kb.median_ms(plain, 5)
+        ms, plain_ms = kb.median_ms(kernel, kb.REPS), kb.median_ms(plain, 5)
         bound = kb.roi_align_bound(b, [tuple(f.shape[1:3]) for f in lv], n, pool, c, 2)
         print(f"kernels: roi_align bf16 {image}^2 B={b} N={n} pool={pool} C={c}: within 1 bf16 ulp "
               f"(max abs {err:.3g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events); "
@@ -269,7 +270,7 @@ def backward_against_plain(rec: dict, grad, boxes, label: str, card_name: str) -
             raise AssertionError(f"roi_align_backward {label} {grad.dtype} N={n} pool={pool} P{lvl + 2}: "
                                  f"max abs diff {float(diff.max())}")
         err = max(err, float(diff.max()))
-    ms, plain_ms = kb.median_ms(kernel, 10), kb.median_ms(plain, 3)
+    ms, plain_ms = kb.median_ms(kernel, kb.REPS), kb.median_ms(plain, 3)
     bound = kb.roi_align_backward_bound(b, shapes, n, pool, c, grad.element_size())
     name = "bf16" if grad.dtype == torch.bfloat16 else "f32"
     print(f"kernels: roi_align_backward {label} {name} B={b} N={n} pool={pool} C={c}: within tolerance of "
@@ -322,7 +323,7 @@ def check_crop_and_resize(dev, rng, card_name: str) -> dict:
     if not torch.equal(k, p):
         raise AssertionError(f"crop_and_resize: {int((k != p).sum())} values differ from the plain version, "
                              f"max abs {float((k - p).abs().max())}")
-    ms, plain_ms = kb.median_ms(kernel, 20), kb.median_ms(plain, 5)
+    ms, plain_ms = kb.median_ms(kernel, kb.REPS), kb.median_ms(plain, 5)
     bound = kb.crop_and_resize_bound(b, r, 28, 28)
     print(f"kernels: crop_and_resize f32 masks [{b},{h},{h},{g}] R={r} 28x28: bit-equal; kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms (median, CUDA events); {share(bound[0], ms)} ({bound[1]}) [{card_name}]")
@@ -598,12 +599,17 @@ def check_train_step_boxes(captured: dict, nms_rec: dict, bwd_rec: dict, card_na
     """NMS and the ROIAlign backward on the boxes of a real flagship train
     step (its RPN boxes and scores before NMS; its 512 sampled ROIs at pool
     7 and 168 positive slots at pool 14, around 12 sources per image), which
-    the seeded log-uniform boxes understate: these crowd onto P2."""
+    the seeded log-uniform boxes understate: these crowd onto P2. The boxes
+    are saved for ``kernel_bench.py`` to ``build/train_step_boxes.pt``."""
     import torch
 
+    from caesar_mrcnn_tpu_torch import kernel_bench as kb
     from caesar_mrcnn_tpu_torch.ops.roi_align import roi_levels
 
     boxes, scores, max_out, thr = captured["nms"]
+    kb.TRAIN_STEP_BOXES.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"nms": (boxes.cpu(), scores.cpu(), int(max_out), float(thr)),
+                "rois": {pool: rois.cpu() for pool, rois in captured["rois"].items()}}, kb.TRAIN_STEP_BOXES)
     nms_against_plain(nms_rec, boxes, scores, max_out, thr, "train-step RPN", card_name)
     rng = np.random.RandomState(SEED + 1)
     for pool, rois in captured["rois"].items():

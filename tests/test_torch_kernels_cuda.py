@@ -125,11 +125,12 @@ def test_roi_align_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("pool,c", [(7, 256), (14, 64), (2, 4)])
+@pytest.mark.parametrize("pool,c", [(7, 256), (14, 64), (2, 2), (5, 66)])
 def test_roi_align_backward_kernel_equals_plain(cuda, dtype, pool, c):
     """Through autograd: the backward kernel's level gradients against the
     f64 plain gradient, within 1e-5 of each element's absolute-contribution
-    sum (f32 atomics in any order), plus 2 bf16 ulp at bf16."""
+    sum (f32 atomics in any order), plus 2 bf16 ulp at bf16. C = 2 and 66
+    run the kernel on channel pairs, the others on quads."""
     rng = np.random.RandomState(pool * c + 1)
     levels = [torch.from_numpy(rng.randn(2, s, s + 3, c).astype(np.float32)).to(cuda, dtype).requires_grad_(True)
               for s in (64, 32, 16, 8)]
@@ -194,8 +195,8 @@ def test_roi_align_backward_kernel_edge_cases(cuda, dtype, case):
 
 def test_roi_align_backward_kernel_rejects_what_it_does_not_take(cuda):
     boxes = torch.zeros(1, 3, 4, device=cuda)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        R.roi_align_backward(torch.zeros(1, 3, 7, 7, 6, device=cuda), boxes, [(16, 16)] * 4, (64, 64))
+    with pytest.raises(ValueError, match="even C"):
+        R.roi_align_backward(torch.zeros(1, 3, 7, 7, 5, device=cuda), boxes, [(16, 16)] * 4, (64, 64))
     with pytest.raises(TypeError):
         R.roi_align_backward(torch.zeros(1, 3, 7, 7, 8, device=cuda).half(), boxes, [(16, 16)] * 4, (64, 64))
 
