@@ -1,8 +1,8 @@
 // Multilevel ROIAlign (crop_and_resize sampling) over P2..P5, for Hopper
-// (sm_90a), and its gradient in the levels (roi_align_backward_kernel,
-// below): the VJP of ops/roi_align.py::multilevel_roi_align_batched, which
-// the JAX training graph takes through XLA and the two Pallas kernels do
-// not have.
+// (sm_90a): the forward (roi_align_kernel) and its gradient in the levels
+// (roi_align_backward_kernel, below), the VJP of
+// ops/roi_align.py::multilevel_roi_align_batched, which the JAX training
+// graph takes through XLA and the two Pallas kernels do not have.
 //
 // Replaces: caesar_mrcnn_tpu/ops/roi_align_pallas.py::multilevel_roi_align_vmem
 // and ::multilevel_roi_align_pallas (the two Pallas TPU kernels), and the XLA
@@ -10,26 +10,46 @@
 // which the JAX detect graph runs at models/mask_rcnn.py:208 and :234. All
 // three compute the same function.
 //
-// What bounds it on the card: memory. Each output element reads four taps
-// and does eight flops; at the detect shapes (8 x 1000 boxes x 7x7 x 256
-// bf16, and 8 x 100 x 14x14 x 256) the taps come from a ~11 MB-per-image
-// pyramid and the output is written once.
+// Both kernels find each box's FPN level themselves, from the box, with the
+// plain version's exact area rule (sampling.cuh::fpn_level); their wrappers
+// launch nothing else before them. The Pallas kernels' 32x40 tile and their
+// level bump for slivers existed only because the TPU tile was fixed; taps
+// are read straight from global memory here, so the exact rule stands.
 //
-// Design: one block per (image, box). The block computes the box's sample
-// positions, clamped tap indices and bilinear weights once, in shared
-// memory; its threads then run across channels with paired loads
-// (__nv_bfloat162 or float2) on the NHWC level map, neighbouring threads on
-// neighbouring addresses. The Pallas kernels' 32x40 tile and their level
-// bump for slivers existed only because the TPU tile was fixed; taps are
-// read straight from global memory here, so the exact FPN area rule stands
-// (levels come from the wrapper, computed by the plain version's
-// roi_levels).
+// Forward. What bounds it on the card: memory. The output is written once
+// (8 x 1000 x 7x7 x 256 bf16 = 200 MB at the detect path's proposals, 0.06
+// ms at 3.35 TB/s) and the taps read at least the level pixels the boxes
+// touch (kernel_bench.roi_align_pixels; at most the ~11 MB pyramid of an
+// image); eight flops per output element. What holds it now (PERF.md): the
+// output's stores alone take half its time (2.7 TB/s), and its taps, four
+// 16-byte reads per output vector, the other half; it reaches 0.5-0.66 of
+// its bound.
+//
+// Design:
+//  - One warp per (box, part), four warps per block; a part is a run of the
+//    box's sample rows. Boxes are split into parts until the grid holds ~64
+//    warps per SM (detect N=1000 at pool 7: 8000 boxes in 2 parts; N=100
+//    at pool 14: 800 boxes in 11).
+//  - The warp computes its box's level and its 2 x pool taps itself (lane p
+//    < pool: the y and x taps of sample p) into its own slot of shared
+//    memory, behind __syncwarp: no block barrier, so each warp loads as
+//    soon as its own taps are ready.
+//  - The part's output [rows, pool, C] is contiguous, cut into vectors of
+//    16 bytes (8 bf16 or 4 f32 channels; 8 or 4 bytes where C or a level's
+//    alignment does not allow 16: the wrapper picks the widest). Lane l
+//    handles vectors l, l + 32, ...: stores are coalesced, and at C=256
+//    bf16 a warp covers one sample's channel row.
+//  - Each lane issues the four taps of kFwdUnroll (2) vectors (read-only
+//    path, __ldg, so taps that neighbouring samples repeat hit L1) before
+//    it blends any of them.
+//  - pool is a template parameter for 7 and 14 (the paths' pools), with a
+//    generic instantiation for 2..32.
 //
 // Numerics follow ops/roi_align.py: sample positions, taps and weights from
 // sampling.cuh (shared with the backward and crop_and_resize.cu); samples
 // outside the map read 0; the four products are summed in f32, in the plain
 // version's order, with explicitly rounded operations, and rounded once to
-// the feature dtype.
+// the feature dtype: results equal roi_align_plain's on the card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,37 +69,8 @@ struct Levels {
   int w[4];
 };
 
-template <typename T>
-struct Pair;
-
-template <>
-struct Pair<float> {
-  using V = float2;
-  static __device__ __forceinline__ float2 load(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-  static __device__ __forceinline__ void store(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-  static __device__ __forceinline__ float2 to_float2(float2 v) { return v; }
-};
-
-template <>
-struct Pair<__nv_bfloat16> {
-  using V = __nv_bfloat162;
-  static __device__ __forceinline__ __nv_bfloat162 load(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const __nv_bfloat162*>(p);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  }
-  static __device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) {
-    return __bfloat1622float2(v);
-  }
-};
-
 // The box's taps along y (axis 0, against h) and x (axis 1, against w),
-// computed once per block into shared memory.
+// computed once per block into shared memory (the backward's prologue).
 __device__ __forceinline__ void box_taps(Tap (&taps)[2][kMaxPool],
                                          const float* box, int h, int w,
                                          int pool) {
@@ -108,57 +99,191 @@ __device__ __forceinline__ Corners corners(float wy, float wx) {
 
 // ((f00*w00 + f01*w01) + f10*w10) + f11*w11, each step rounded.
 __device__ __forceinline__ float blend(float f00, float f01, float f10,
-                                       float f11, float w00, float w01,
-                                       float w10, float w11) {
-  float acc = __fadd_rn(__fmul_rn(f00, w00), __fmul_rn(f01, w01));
-  acc = __fadd_rn(acc, __fmul_rn(f10, w10));
-  return __fadd_rn(acc, __fmul_rn(f11, w11));
+                                       float f11, const Corners& k) {
+  float acc = __fadd_rn(__fmul_rn(f00, k.w00), __fmul_rn(f01, k.w01));
+  acc = __fadd_rn(acc, __fmul_rn(f10, k.w10));
+  return __fadd_rn(acc, __fmul_rn(f11, k.w11));
 }
 
-// grid B*N, block threads over channel pairs. out: [B, N, pool, pool, C].
-template <typename T>
-__global__ void roi_align_kernel(Levels lv, int c, int n,
-                                 const float* __restrict__ boxes,
-                                 const int32_t* __restrict__ levels, int pool,
-                                 T* __restrict__ out) {
-  __shared__ Tap taps[2][kMaxPool];
+constexpr int kFwdWarps = 4;   // warps per block
+constexpr int kFwdUnroll = 2;  // vectors whose four taps a lane has in flight
+constexpr int kFwdWarpsPerSM = 64;  // the grid the wrapper aims at, per SM
 
-  const int box = blockIdx.x;
-  const int b = box / n;
-  const int level = levels[box];
+// A vector of W 32-bit words: 4W bytes of channels.
+template <int W>
+struct Words {
+  unsigned int w[W];
+};
+
+template <int W>
+__device__ __forceinline__ Words<W> load_words(const void* p) {
+  Words<W> r;
+  if constexpr (W == 4) {
+    const uint4 v = __ldg(static_cast<const uint4*>(p));
+    r.w[0] = v.x, r.w[1] = v.y, r.w[2] = v.z, r.w[3] = v.w;
+  } else if constexpr (W == 2) {
+    const uint2 v = __ldg(static_cast<const uint2*>(p));
+    r.w[0] = v.x, r.w[1] = v.y;
+  } else {
+    r.w[0] = __ldg(static_cast<const unsigned int*>(p));
+  }
+  return r;
+}
+
+template <int W>
+__device__ __forceinline__ void store_words(void* p, const Words<W>& r) {
+  if constexpr (W == 4) {
+    *static_cast<uint4*>(p) = make_uint4(r.w[0], r.w[1], r.w[2], r.w[3]);
+  } else if constexpr (W == 2) {
+    *static_cast<uint2*>(p) = make_uint2(r.w[0], r.w[1]);
+  } else {
+    *static_cast<unsigned int*>(p) = r.w[0];
+  }
+}
+
+// The channels of one 32-bit word: one f32, or two bf16 (the first in the
+// low half). bf16 widens to f32 exactly by a shift.
+template <typename T>
+struct Packed;
+
+template <>
+struct Packed<float> {
+  static constexpr int kPerWord = 1;
+  static __device__ __forceinline__ float get(unsigned int w, int) { return __uint_as_float(w); }
+  static __device__ __forceinline__ unsigned int put(const float* v) { return __float_as_uint(v[0]); }
+};
+
+template <>
+struct Packed<__nv_bfloat16> {
+  static constexpr int kPerWord = 2;
+  static __device__ __forceinline__ float get(unsigned int w, int j) {
+    return __uint_as_float(j == 0 ? w << 16 : w & 0xffff0000u);
+  }
+  static __device__ __forceinline__ unsigned int put(const float* v) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[0], v[1]);
+    return *reinterpret_cast<const unsigned int*>(&h);
+  }
+};
+
+// grid: ceil(boxes * parts / kFwdWarps) blocks of kFwdWarps warps, one warp
+// per (box, part). out: [B, N, pool, pool, C], C a multiple of the vector's
+// channels; each level's image h * w * C below 2^31 elements. POOL = 0 reads
+// the pool from pool_arg.
+template <typename T, int W, int POOL>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+roi_align_kernel(Levels lv, int c, int n, int boxes_total,
+                 const float* __restrict__ boxes, float inv_denom,
+                 int pool_arg, int parts, T* __restrict__ out) {
+  using P = Packed<T>;
+  constexpr int V = W * P::kPerWord;  // channels per vector
+  const int pool = POOL > 0 ? POOL : pool_arg;
+  __shared__ Tap taps[kFwdWarps][2][kMaxPool];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int unit = blockIdx.x * kFwdWarps + warp;
+  if (unit >= boxes_total * parts) return;  // no block barrier follows
+  const int box = unit / parts;
+  const int part = unit - box * parts;
+  const float* bx = boxes + (size_t)box * 4;
+  const int level = caesar::fpn_level(bx, inv_denom);
   const int h = lv.h[level];
   const int w = lv.w[level];
-  const T* f = static_cast<const T*>(lv.ptr[level]) + (size_t)b * h * w * c;
-  box_taps(taps, boxes + (size_t)box * 4, h, w, pool);
+  const T* f = static_cast<const T*>(lv.ptr[level]) + (size_t)(box / n) * h * w * c;
+  Tap(&ty)[kMaxPool] = taps[warp][0];
+  Tap(&tx)[kMaxPool] = taps[warp][1];
+  if (lane < pool) {
+    ty[lane] = caesar::sample(bx[0], bx[2], h, pool, lane);
+    tx[lane] = caesar::sample(bx[1], bx[3], w, pool, lane);
+  }
+  __syncwarp();
 
-  T* o = out + (size_t)box * pool * pool * c;
-  const int pairs = c >> 1;
-  for (int py = 0; py < pool; ++py) {
-    const Tap ty = taps[0][py];
-    const T* row0 = f + (size_t)ty.lo * w * c;
-    const T* row1 = f + (size_t)ty.hi * w * c;
-    for (int px = 0; px < pool; ++px) {
-      T* dst = o + ((size_t)py * pool + px) * c;
-      const Tap tx = taps[1][px];
-      const bool inside = ty.inside && tx.inside;
-      const Corners k = corners(ty.w, tx.w);
-      const size_t x0 = (size_t)tx.lo * c;
-      const size_t x1 = (size_t)tx.hi * c;
-      for (int q = threadIdx.x; q < pairs; q += blockDim.x) {
-        const int ch = q << 1;
-        float a = 0.0f, bb = 0.0f;
-        if (inside) {
-          const float2 f00 = Pair<T>::to_float2(Pair<T>::load(row0 + x0 + ch));
-          const float2 f01 = Pair<T>::to_float2(Pair<T>::load(row0 + x1 + ch));
-          const float2 f10 = Pair<T>::to_float2(Pair<T>::load(row1 + x0 + ch));
-          const float2 f11 = Pair<T>::to_float2(Pair<T>::load(row1 + x1 + ch));
-          a = blend(f00.x, f01.x, f10.x, f11.x, k.w00, k.w01, k.w10, k.w11);
-          bb = blend(f00.y, f01.y, f10.y, f11.y, k.w00, k.w01, k.w10, k.w11);
+  // The part's vectors: vector i is (sample s, channel vector q), s * nvec +
+  // q past the part's first; the lane keeps (s, q) of its next vector.
+  const int row0 = part * pool / parts, row1 = (part + 1) * pool / parts;
+  const int nvec = c / V;
+  const int items = (row1 - row0) * pool * nvec;
+  T* o = out + ((size_t)box * pool + row0) * pool * c;
+  const int ds = 32 / nvec, dq = 32 - ds * nvec;
+  int s = row0 * pool + lane / nvec, q = lane % nvec;
+  const int wc = w * c;
+  for (int i = lane; i < items; i += 32 * kFwdUnroll) {
+    Words<W> t00[kFwdUnroll], t01[kFwdUnroll], t10[kFwdUnroll], t11[kFwdUnroll];
+    Corners k[kFwdUnroll];
+    bool live[kFwdUnroll];
+#pragma unroll
+    for (int u = 0; u < kFwdUnroll; ++u) {
+      live[u] = false;
+      if (i + 32 * u < items) {
+        const int py = s / pool;
+        const Tap a = ty[py], b = tx[s - py * pool];
+        live[u] = a.inside && b.inside;
+        if (live[u]) {
+          k[u] = corners(a.w, b.w);
+          const T* r0 = f + a.lo * wc + q * V;
+          const T* r1 = f + a.hi * wc + q * V;
+          t00[u] = load_words<W>(r0 + b.lo * c);
+          t01[u] = load_words<W>(r0 + b.hi * c);
+          t10[u] = load_words<W>(r1 + b.lo * c);
+          t11[u] = load_words<W>(r1 + b.hi * c);
         }
-        Pair<T>::store(dst + ch, a, bb);
       }
+      s += ds, q += dq;
+      if (q >= nvec) q -= nvec, ++s;
+    }
+#pragma unroll
+    for (int u = 0; u < kFwdUnroll; ++u) {
+      if (i + 32 * u >= items) break;
+      Words<W> r;
+      if (live[u]) {
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          float v[P::kPerWord];
+#pragma unroll
+          for (int e = 0; e < P::kPerWord; ++e) {
+            v[e] = blend(P::get(t00[u].w[j], e), P::get(t01[u].w[j], e),
+                         P::get(t10[u].w[j], e), P::get(t11[u].w[j], e), k[u]);
+          }
+          r.w[j] = P::put(v);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < W; ++j) r.w[j] = 0u;  // +0.0 in either dtype
+      }
+      store_words<W>(o + (size_t)(i + 32 * u) * V, r);
     }
   }
+}
+
+// Boxes are split into parts (runs of sample rows) until the grid holds
+// kFwdWarpsPerSM warps per SM, so that small cases still fill the card.
+int forward_parts(int boxes_total, int pool) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  const int want = (sms * kFwdWarpsPerSM + boxes_total - 1) / boxes_total;
+  return want < 1 ? 1 : (want > pool ? pool : want);
+}
+
+template <typename T, int W, int POOL>
+void launch_forward(cudaStream_t s, const Levels& lv, int c, int n, int boxes_total,
+                    const float* boxes, float inv_denom, int pool, void* out) {
+  const int parts = forward_parts(boxes_total, pool);
+  const unsigned int blocks =
+      (unsigned int)(((long)boxes_total * parts + kFwdWarps - 1) / kFwdWarps);
+  roi_align_kernel<T, W, POOL><<<blocks, kFwdWarps * 32, 0, s>>>(
+      lv, c, n, boxes_total, boxes, inv_denom, pool, parts, static_cast<T*>(out));
+}
+
+template <typename T, int W>
+void launch_forward_pool(cudaStream_t s, const Levels& lv, int c, int n, int boxes_total,
+                         const float* boxes, float inv_denom, int pool, void* out) {
+  auto fn = pool == 7 ? launch_forward<T, W, 7>
+                      : pool == 14 ? launch_forward<T, W, 14> : launch_forward<T, W, 0>;
+  fn(s, lv, c, n, boxes_total, boxes, inv_denom, pool, out);
 }
 
 // Backward: the VJP of roi_align_kernel with respect to the levels (boxes
@@ -187,7 +312,8 @@ __global__ void roi_align_kernel(Levels lv, int c, int n,
 // Design: the bilinear weight of a tap is a product of a row weight and a
 // column weight, so the gradient of a box is two small sums, each written
 // by the one thread that owns it, with no atomics in shared memory.
-//  - One block per box, 256 threads. The block finds the box's footprint
+//  - One block per box, 256 threads. Each thread computes the box's level
+//    (fpn_level, as the forward does). The block finds the box's footprint
 //    on its level (the bounding rows and columns of its inside taps) and,
 //    for each footprint row and column, the range of samples whose taps
 //    touch it and their weights along that axis, in shared memory.
@@ -309,7 +435,7 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
 roi_align_backward_kernel(Levels grads, int c, int n,
                           const float* __restrict__ boxes,
-                          const int32_t* __restrict__ levels, int pool,
+                          float inv_denom, int pool,
                           const T* __restrict__ grad_out) {
   using L = Lanes<V>;
   __shared__ Tap taps[2][kMaxPool];
@@ -321,7 +447,7 @@ roi_align_backward_kernel(Levels grads, int c, int n,
 
   const int box = blockIdx.x;
   const int b = box / n;
-  const int level = levels[box];
+  const int level = caesar::fpn_level(boxes + (size_t)box * 4, inv_denom);
   const int h = grads.h[level];
   const int w = grads.w[level];
   float* g = static_cast<float*>(const_cast<void*>(grads.ptr[level])) +
@@ -440,69 +566,83 @@ roi_align_backward_kernel(Levels grads, int c, int n,
 
 template <typename T, int V>
 void launch_backward(unsigned int blocks, cudaStream_t s, const Levels& lv, int c,
-                     int n, const float* boxes, const int32_t* levels, int pool,
+                     int n, const float* boxes, float inv_denom, int pool,
                      const void* grad_out) {
   roi_align_backward_kernel<T, V><<<blocks, kBwdThreads, 0, s>>>(
-      lv, c, n, boxes, levels, pool, static_cast<const T*>(grad_out));
+      lv, c, n, boxes, inv_denom, pool, static_cast<const T*>(grad_out));
+}
+
+Levels make_levels(const void* l2, const void* l3, const void* l4, const void* l5,
+                   int h2, int w2, int h3, int w3, int h4, int w4, int h5, int w5) {
+  Levels lv;
+  lv.ptr[0] = l2; lv.ptr[1] = l3; lv.ptr[2] = l4; lv.ptr[3] = l5;
+  lv.h[0] = h2; lv.h[1] = h3; lv.h[2] = h4; lv.h[3] = h5;
+  lv.w[0] = w2; lv.w[1] = w3; lv.w[2] = w4; lv.w[3] = w5;
+  return lv;
 }
 
 }  // namespace
 
-// grad_out: [B, N, pool, pool, C] in dtype (0 = float32, 1 = bfloat16),
-// C even, 16-byte aligned; g2..g5: f32 level gradients [B, H_l, W_l, C],
-// 8-byte aligned (16 where 4 divides C), zeroed, accumulated into.
+// Both entry points: boxes [B*N, 4] f32 normalized (y1, x1, y2, x2);
+// inv_denom = f32(1 / f32(224 / sqrt(image area))), the level rule's scale
+// (fpn_level); dtype 0 = float32, 1 = bfloat16.
+
+// grad_out: [B, N, pool, pool, C] in dtype, C even, 16-byte aligned;
+// g2..g5: f32 level gradients [B, H_l, W_l, C], 8-byte aligned (16 where 4
+// divides C), zeroed, accumulated into.
 extern "C" int caesar_roi_align_backward(void* g2, void* g3, void* g4, void* g5,
                                          int h2, int w2, int h3, int w3,
                                          int h4, int w4, int h5, int w5,
                                          int batch, int c, const float* boxes,
-                                         const int32_t* levels, int n, int pool,
+                                         int n, int pool, float inv_denom,
                                          int dtype, const void* grad_out,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Levels lv;
-  lv.ptr[0] = g2; lv.ptr[1] = g3; lv.ptr[2] = g4; lv.ptr[3] = g5;
-  lv.h[0] = h2; lv.h[1] = h3; lv.h[2] = h4; lv.h[3] = h5;
-  lv.w[0] = w2; lv.w[1] = w3; lv.w[2] = w4; lv.w[3] = w5;
+  const Levels lv = make_levels(g2, g3, g4, g5, h2, w2, h3, w3, h4, w4, h5, w5);
   if (pool < 2 || pool > kMaxPool || (c & 1)) return (int)cudaErrorInvalidValue;
   const unsigned int blocks = (unsigned int)batch * (unsigned int)n;
   if (blocks == 0) return (int)cudaSuccess;
   const bool quads = (c & 3) == 0;
   if (dtype == 0) {
     (quads ? launch_backward<float, 4> : launch_backward<float, 2>)(
-        blocks, s, lv, c, n, boxes, levels, pool, grad_out);
+        blocks, s, lv, c, n, boxes, inv_denom, pool, grad_out);
   } else if (dtype == 1) {
     (quads ? launch_backward<__nv_bfloat16, 4> : launch_backward<__nv_bfloat16, 2>)(
-        blocks, s, lv, c, n, boxes, levels, pool, grad_out);
+        blocks, s, lv, c, n, boxes, inv_denom, pool, grad_out);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. levels: [B*N] int32 in 0..3.
+// p2..p5: levels [B, H_l, W_l, C] in dtype, each aligned to vec_bytes and
+// each image below 2^31 elements; out: [B, N, pool, pool, C], aligned to
+// vec_bytes. vec_bytes (16, 8 or 4; 16 or 8 for f32) divides C's bytes:
+// the width of each lane's loads and stores.
 extern "C" int caesar_roi_align(const void* p2, const void* p3, const void* p4,
                                 const void* p5, int h2, int w2, int h3, int w3,
                                 int h4, int w4, int h5, int w5, int batch,
-                                int c, const float* boxes,
-                                const int32_t* levels, int n, int pool,
-                                int dtype, void* out, void* stream) {
+                                int c, const float* boxes, int n, int pool,
+                                float inv_denom, int dtype, int vec_bytes,
+                                void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Levels lv;
-  lv.ptr[0] = p2; lv.ptr[1] = p3; lv.ptr[2] = p4; lv.ptr[3] = p5;
-  lv.h[0] = h2; lv.h[1] = h3; lv.h[2] = h4; lv.h[3] = h5;
-  lv.w[0] = w2; lv.w[1] = w3; lv.w[2] = w4; lv.w[3] = w5;
-  if (pool < 2 || pool > kMaxPool || (c & 1)) return (int)cudaErrorInvalidValue;
-  const int pairs = c / 2;
-  const int threads = pairs >= 256 ? 256 : ((pairs + 31) / 32) * 32;
-  const unsigned int blocks = (unsigned int)batch * (unsigned int)n;
-  if (dtype == 0) {
-    roi_align_kernel<float><<<blocks, threads, 0, s>>>(
-        lv, c, n, boxes, levels, pool, static_cast<float*>(out));
-  } else if (dtype == 1) {
-    roi_align_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        lv, c, n, boxes, levels, pool, static_cast<__nv_bfloat16*>(out));
-  } else {
+  const Levels lv = make_levels(p2, p3, p4, p5, h2, w2, h3, w3, h4, w4, h5, w5);
+  const int itemsize = dtype == 0 ? 4 : 2;
+  if (pool < 2 || pool > kMaxPool || (c & 1) || (dtype != 0 && dtype != 1) ||
+      (vec_bytes != 16 && vec_bytes != 8 && vec_bytes != 4) || vec_bytes < 2 * itemsize ||
+      (c * itemsize) % vec_bytes) {
     return (int)cudaErrorInvalidValue;
+  }
+  const int boxes_total = batch * n;
+  if (boxes_total == 0) return (int)cudaSuccess;
+  if (dtype == 0) {
+    (vec_bytes == 16 ? launch_forward_pool<float, 4> : launch_forward_pool<float, 2>)(
+        s, lv, c, n, boxes_total, boxes, inv_denom, pool, out);
+  } else {
+    (vec_bytes == 16 ? launch_forward_pool<__nv_bfloat16, 4>
+     : vec_bytes == 8 ? launch_forward_pool<__nv_bfloat16, 2>
+                      : launch_forward_pool<__nv_bfloat16, 1>)(
+        s, lv, c, n, boxes_total, boxes, inv_denom, pool, out);
   }
   return (int)cudaGetLastError();
 }

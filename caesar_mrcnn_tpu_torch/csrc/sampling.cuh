@@ -1,7 +1,8 @@
 // Bilinear sample positions of crop_and_resize with aligned corners, shared
 // by the ROIAlign forward and backward (roi_align.cu) and the mask-target
 // crop (crop_and_resize.cu), so that all three sample exactly where the
-// plain versions in ops/roi_align.py do.
+// plain versions in ops/roi_align.py do; and the FPN level rule of the two
+// ROIAlign kernels (fpn_level).
 //
 // Along one axis of extent H, sample p of n sits at
 // (lo + (hi - lo) * t) * (H - 1), with jnp.linspace's t = p * (1 / (n - 1))
@@ -45,6 +46,20 @@ __device__ __forceinline__ Tap sample(float lo, float hi, int extent, int n,
   tap.lo = (int)t0;
   tap.hi = (int)t1;
   return tap;
+}
+
+// FPN level of a box (y1, x1, y2, x2), 0-based over P2..P5: the plain
+// version's roi_levels as PyTorch evaluates it on the card, operation for
+// operation in f32: 4 + round(log2(sqrt(max(h * w, 1e-12)) / denom)),
+// rounded half to even, clamped to [2, 5], minus 2. PyTorch divides a CUDA
+// tensor by a host scalar as a product with the scalar's f32 reciprocal,
+// so the caller passes inv_denom = f32(1 / denom).
+__device__ __forceinline__ int fpn_level(const float* box, float inv_denom) {
+  const float h = __fsub_rn(box[2], box[0]);
+  const float w = __fsub_rn(box[3], box[1]);
+  const float scale = __fmul_rn(__fsqrt_rn(fmaxf(__fmul_rn(h, w), 1e-12f)), inv_denom);
+  const float level = __fadd_rn(4.0f, rintf(log2f(scale)));
+  return (int)clampf(level, 2.0f, 5.0f) - 2;
 }
 
 }  // namespace caesar

@@ -31,6 +31,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def _sources():
@@ -94,11 +95,11 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     lib.caesar_nms.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P, _P]
     lib.caesar_nms.restype = _I
-    lib.caesar_roi_align.argtypes = [_P] * 4 + [_I] * 10 + [_P, _P, _I, _I, _I, _P, _P]
+    lib.caesar_roi_align.argtypes = [_P] * 4 + [_I] * 10 + [_P, _I, _I, _F, _I, _I, _P, _P]
     lib.caesar_roi_align.restype = _I
-    lib.caesar_roi_align_backward.argtypes = [_P] * 4 + [_I] * 10 + [_P, _P, _I, _I, _I, _P, _P]
+    lib.caesar_roi_align_backward.argtypes = [_P] * 4 + [_I] * 10 + [_P, _I, _I, _F, _I, _P, _P]
     lib.caesar_roi_align_backward.restype = _I
-    lib.caesar_crop_and_resize.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P]
+    lib.caesar_crop_and_resize.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
     lib.caesar_crop_and_resize.restype = _I
     return lib
 

@@ -18,12 +18,22 @@ kernel of ``csrc/roi_align.cu`` (plain version: autograd through
 :func:`roi_align_plain`). :func:`crop_and_resize`, the mask-target crop of
 training, samples the same way on one GT mask channel per box
 (``csrc/crop_and_resize.cu``).
+
+On the card each call is one kernel launch and nothing else: both ROIAlign
+kernels find each box's level themselves (``sampling.cuh::fpn_level``, the
+rule of :func:`roi_levels` as PyTorch evaluates it on the card), the
+forward's lane vector follows C and the levels' alignment, and the crop
+reads its int32 or int64 assignment as it is. All three are bound by
+memory; the kernels' source notes say what holds each there, and
+``kernel_bench.py`` splits and times each call against its bound, counted
+from the bytes the data's taps touch.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _kernels
@@ -118,7 +128,27 @@ def _check_kernel_shapes(name, dtype, c, pool, n_levels):
         raise ValueError(f"{name} kernel needs even C and 2 <= pool <= 32 (C={c}, pool={pool})")
 
 
-def _roi_align_cuda(features, boxes, levels, pool):
+def _level_inv_denom(image_shape: Tuple[int, int]) -> float:
+    """The kernels' scale of the level rule: f32(1 / denom) with
+    :func:`roi_levels`' f32 ``denom``. On the card, PyTorch divides a tensor
+    by a host scalar as a product with the scalar's f32 reciprocal, and the
+    kernels (``sampling.cuh::fpn_level``) do the same."""
+    denom = np.float32(224.0) / np.sqrt(np.float32(image_shape[0] * image_shape[1]))
+    return float(np.float32(1.0) / denom)
+
+
+def _vector_bytes(features, c: int, itemsize: int) -> int:
+    """The widest lane vector of the forward kernel (16, 8 or 4 bytes, at
+    least two channels) that a row of C channels and every level's address
+    allow."""
+    for nbytes in (16, 8, 4):
+        if nbytes >= 2 * itemsize and (c * itemsize) % nbytes == 0 and all(
+                f.data_ptr() % nbytes == 0 for f in features):
+            return nbytes
+    raise ValueError(f"roi_align kernel needs levels aligned to {2 * itemsize} bytes")
+
+
+def _roi_align_cuda(features, boxes, image_shape, pool):
     b, n = boxes.shape[:2]
     c = features[0].shape[-1]
     dtype = features[0].dtype
@@ -126,14 +156,14 @@ def _roi_align_cuda(features, boxes, levels, pool):
     for f in features:
         if not f.is_contiguous():
             raise ValueError("roi_align kernel needs contiguous NHWC levels")
-        if f.data_ptr() % 8:
-            raise ValueError("roi_align kernel needs 8-byte aligned levels")
+        if f.shape[1] * f.shape[2] * c >= 2**31:
+            raise ValueError("roi_align kernel needs each level's image below 2^31 elements")
+    vector = _vector_bytes(features, c, features[0].element_size())
     out = torch.empty((b, n, pool, pool, c), dtype=dtype, device=boxes.device)
     hw = [int(d) for f in features for d in f.shape[1:3]]
-    lib = _kernels.library()
-    status = lib.caesar_roi_align(
-        *(f.data_ptr() for f in features), *hw, b, c, boxes.data_ptr(),
-        levels.data_ptr(), n, pool, _DTYPES[dtype], out.data_ptr(),
+    status = _kernels.library().caesar_roi_align(
+        *(f.data_ptr() for f in features), *hw, b, c, boxes.data_ptr(), n, pool,
+        _level_inv_denom(image_shape), _DTYPES[dtype], vector, out.data_ptr(),
         torch.cuda.current_stream(boxes.device).cuda_stream,
     )
     _kernels.check(status, "caesar_roi_align")
@@ -142,16 +172,16 @@ def _roi_align_cuda(features, boxes, levels, pool):
 
 
 class _RoiAlignCuda(torch.autograd.Function):
-    """The forward kernel with the backward kernel as its gradient; boxes
-    carry no gradient (the training graph detaches its ROIs)."""
+    """The forward kernel with the backward kernel as its gradient; both
+    find each box's level themselves. Boxes carry no gradient (the training
+    graph detaches its ROIs)."""
 
     @staticmethod
     def forward(ctx, boxes, image_shape, pool, *features):
-        levels = roi_levels(boxes, float(image_shape[0] * image_shape[1]), 4).contiguous()
         ctx.save_for_backward(boxes)
         ctx.image_shape = image_shape
         ctx.level_shapes = [tuple(f.shape[1:3]) for f in features]
-        return _roi_align_cuda(features, boxes, levels, pool)
+        return _roi_align_cuda(features, boxes, image_shape, pool)
 
     @staticmethod
     def backward(ctx, grad):
@@ -175,9 +205,10 @@ def roi_align(
       pool: output size.
 
     Returns [B, N, pool, pool, C] in the feature dtype. CUDA tensors run the
-    kernel (and count one launch in ``roi_align.launches``), and its
-    gradient runs :func:`roi_align_backward`'s kernel; CPU tensors run the
-    plain version and autograd through it.
+    kernel alone (one launch, counted in ``roi_align.launches``: it finds
+    each box's level itself), and its gradient runs
+    :func:`roi_align_backward`'s kernel; CPU tensors run the plain version
+    and autograd through it.
     """
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
         raise ValueError(f"boxes must be float32 [B, N, 4], got {boxes.dtype} {tuple(boxes.shape)}")
@@ -219,7 +250,7 @@ def roi_align_backward_plain(
         return list(torch.autograd.grad(out, feats, grad_out))
 
 
-def _roi_align_backward_cuda(grad_out, boxes, level_shapes, levels):
+def _roi_align_backward_cuda(grad_out, boxes, level_shapes, image_shape):
     b, n, pool, _, c = grad_out.shape
     dtype = grad_out.dtype
     _check_kernel_shapes("roi_align_backward", dtype, c, pool, len(level_shapes))
@@ -230,8 +261,8 @@ def _roi_align_backward_cuda(grad_out, boxes, level_shapes, levels):
     if n:  # no box, no gradient: nothing to launch
         hw = [int(d) for shape in level_shapes for d in shape]
         status = _kernels.library().caesar_roi_align_backward(
-            *(g.data_ptr() for g in scratch.split(sizes)), *hw, b, c, boxes.data_ptr(),
-            levels.data_ptr(), n, pool, _DTYPES[dtype], grad_out.data_ptr(),
+            *(g.data_ptr() for g in scratch.split(sizes)), *hw, b, c, boxes.data_ptr(), n, pool,
+            _level_inv_denom(image_shape), _DTYPES[dtype], grad_out.data_ptr(),
             torch.cuda.current_stream(grad_out.device).cuda_stream,
         )
         _kernels.check(status, "caesar_roi_align_backward")
@@ -256,8 +287,8 @@ def roi_align_backward(
 
     Returns one [B, H_l, W_l, C] gradient per level, in grad_out's dtype.
     CUDA tensors run the kernel (one launch, counted in
-    ``roi_align_backward.launches``; none for zero boxes): f32 atomic sums
-    rounded once to the dtype. CPU tensors run
+    ``roi_align_backward.launches``; none for zero boxes), which finds each
+    box's level itself: f32 atomic sums rounded once to the dtype. CPU tensors run
     :func:`roi_align_backward_plain`.
     """
     if grad_out.dim() != 5 or grad_out.shape[2] != grad_out.shape[3]:
@@ -270,9 +301,8 @@ def roi_align_backward(
         return roi_align_backward_plain(grad_out, boxes, level_shapes, image_shape)
     if grad_out.device.type != "cuda":
         raise RuntimeError(f"roi_align_backward: no kernel for device {grad_out.device}")
-    boxes = boxes.contiguous()
-    levels = roi_levels(boxes, float(image_shape[0] * image_shape[1]), len(level_shapes)).contiguous()
-    return _roi_align_backward_cuda(grad_out.contiguous(), boxes, [tuple(s) for s in level_shapes], levels)
+    return _roi_align_backward_cuda(grad_out.contiguous(), boxes.contiguous(), [tuple(s) for s in level_shapes],
+                                    image_shape)
 
 
 roi_align_backward.launches = 0
@@ -323,13 +353,16 @@ def crop_and_resize(
     Args:
       masks: [B, H, W, G] float32 GT masks.
       boxes: [B, R, 4] float32 normalized (y1, x1, y2, x2).
-      assign: [B, R] integer channel of each box, in 0..G-1.
+      assign: [B, R] integer channel of each box, in 0..G-1 (int32 or
+        int64 on the card).
       crop_size: (ph, pw), each at least 2.
 
     Returns [B, R, ph, pw] float32; samples outside the map read 0. CUDA
-    tensors run ``csrc/crop_and_resize.cu`` (one launch, counted in
-    ``crop_and_resize.launches``), which reads the assigned channel in
-    place; CPU tensors run :func:`crop_and_resize_plain`.
+    tensors run ``csrc/crop_and_resize.cu`` alone (one launch, counted in
+    ``crop_and_resize.launches``), which reads each distinct tap of the
+    assigned channel once per box, in place; a block's shared memory, 16 ph
+    pw + 24 (ph + pw) + 4 (H + W) bytes, must fit 227 KB. CPU tensors run
+    :func:`crop_and_resize_plain`.
     """
     if masks.dim() != 4 or masks.dtype != torch.float32:
         raise ValueError(f"masks must be float32 [B, H, W, G], got {masks.dtype} {tuple(masks.shape)}")
@@ -345,13 +378,15 @@ def crop_and_resize(
         return crop_and_resize_plain(masks, boxes, assign, (ph, pw))
     if masks.device.type != "cuda":
         raise RuntimeError(f"crop_and_resize: no kernel for device {masks.device}")
+    if assign.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"crop_and_resize kernel takes int32 or int64 assign, got {assign.dtype}")
     masks = masks.contiguous()
     boxes = boxes.contiguous()
-    assign32 = assign.to(torch.int32).contiguous()
+    assign = assign.contiguous()
     out = torch.empty((b, r, ph, pw), dtype=torch.float32, device=masks.device)
     _, h, w, g = masks.shape
     status = _kernels.library().caesar_crop_and_resize(
-        masks.data_ptr(), b, h, w, g, boxes.data_ptr(), assign32.data_ptr(), r, ph, pw,
+        masks.data_ptr(), b, h, w, g, boxes.data_ptr(), assign.data_ptr(), assign.element_size(), r, ph, pw,
         out.data_ptr(), torch.cuda.current_stream(masks.device).cuda_stream,
     )
     _kernels.check(status, "caesar_crop_and_resize")

@@ -52,25 +52,129 @@ def test_nms_kernel_equals_plain(cuda, n, max_out, thr):
     assert not bool(valid[2].any()) and bool((idx[2] == 0).all())
 
 
+def _levels(rng, dtype, c, device, b=2, offset=0):
+    """Seeded NHWC P2..P5 [b, s, s + 3, C]; with ``offset``, each level is a
+    contiguous view ``offset`` elements into a larger buffer."""
+    out = []
+    for s in (64, 32, 16, 8):
+        x = torch.from_numpy(rng.randn(b, s, s + 3, c).astype(np.float32)).to(device, dtype)
+        if offset:
+            buf = torch.empty(x.numel() + offset, dtype=dtype, device=device)
+            buf[offset:] = x.flatten()
+            x = buf[offset:].view(x.shape)
+        out.append(x)
+    return out
+
+
+def _forward_equals_plain(levels, boxes, image_shape, pool):
+    before = R.roi_align.launches
+    got = R.roi_align(levels, boxes, image_shape, pool)
+    assert R.roi_align.launches == before + 1
+    ref = R.roi_align_plain(levels, boxes, image_shape, pool)
+    torch.cuda.synchronize()
+    c = levels[0].shape[-1]
+    assert got.dtype == levels[0].dtype and got.shape == tuple(boxes.shape[:2]) + (pool, pool, c)
+    # both sum the four taps in f32 in one order and round once
+    assert torch.equal(got, ref)
+    return got
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("pool,c", [(7, 256), (14, 64), (2, 2)])
+@pytest.mark.parametrize("pool", [2, 7, 9, 14])
+@pytest.mark.parametrize("c", [2, 64, 66, 256])
 def test_roi_align_kernel_equals_plain(cuda, dtype, pool, c):
+    """Every vector width the wrapper picks (16 bytes for C = 64 and 256; 8
+    or 4 for C = 2 and 66), the two pools with their own instantiation (7,
+    14) and the generic one (2, 9)."""
     rng = np.random.RandomState(pool * c)
-    levels = [torch.from_numpy(rng.randn(2, s, s + 3, c).astype(np.float32)).to(cuda, dtype)
-              for s in (64, 32, 16, 8)]
+    levels = _levels(rng, dtype, c, cuda)
     boxes = _boxes(rng, 2, 50)
     boxes[:, 0] = [0.0, 0.0, 1.0, 1.0]
     boxes[:, 1] = [0.5, 0.0, 1.0, 1.0]
     boxes[:, -4:] = 0.0
-    boxes = torch.from_numpy(boxes).to(cuda)
-    before = R.roi_align.launches
-    got = R.roi_align(levels, boxes, (256, 268), pool)
-    assert R.roi_align.launches == before + 1
-    ref = R.roi_align_plain(levels, boxes, (256, 268), pool)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == (2, 50, pool, pool, c)
-    # both sum the four taps in f32 in one order and round once
-    assert torch.equal(got, ref)
+    _forward_equals_plain(levels, torch.from_numpy(boxes).to(cuda), (256, 268), pool)
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 4), (torch.bfloat16, 2), (torch.float32, 2)])
+def test_roi_align_kernel_unaligned_levels(cuda, dtype, offset):
+    """Levels that start 8 bytes (or, in bf16, 4 bytes) past a 16-byte
+    boundary: the wrapper narrows the lane vector to what they allow."""
+    rng = np.random.RandomState(offset)
+    levels = _levels(rng, dtype, 256, cuda, offset=offset)
+    nbytes = offset * levels[0].element_size()
+    assert all(f.data_ptr() % 16 == nbytes and f.is_contiguous() for f in levels)
+    assert R._vector_bytes(levels, 256, levels[0].element_size()) == nbytes
+    boxes = torch.from_numpy(_boxes(rng, 2, 40)).to(cuda)
+    _forward_equals_plain(levels, boxes, (256, 268), 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_zero_and_border_boxes(cuda, dtype):
+    """Zero boxes, boxes on each border, the full image, boxes beyond the
+    map (their samples outside read 0) and inverted boxes."""
+    rng = np.random.RandomState(5)
+    levels = _levels(rng, dtype, 256, cuda)
+    boxes = np.float32([[0, 0, 0, 0], [0, 0, 1, 1], [0, 0, 0.1, 0.1], [0.9, 0.9, 1, 1], [0, 0.95, 0.2, 1],
+                        [0.97, 0, 1, 0.3], [-0.2, -0.1, 0.3, 0.4], [0.8, 0.7, 1.3, 1.2], [0.5, 0.5, 0.5, 0.5],
+                        [0.6, 0.6, 0.2, 0.3], [1, 1, 1, 1], [0, 0.3, 1, 0.31]])
+    boxes = torch.from_numpy(np.stack([boxes, boxes[::-1]])).to(cuda)
+    for pool in (7, 14):
+        _forward_equals_plain(levels, boxes.contiguous(), (256, 268), pool)
+
+
+def _boundary_boxes(image: int):
+    """Boxes (0, 0, h, w) whose areas step one f32 ulp at a time across the
+    three level boundaries of the rule, log2(sqrt(hw) * sqrt(area) / 224) =
+    -1.5, -0.5 and 0.5: [1, 3 x 241, 4]."""
+    denom = 224.0 / image
+    rows = []
+    for k in (-2, -1, 0):
+        side = denom * 2.0 ** (k + 0.5)
+        h = np.float32(min(side, 0.9))
+        w = np.float32(side * side / h)
+        ws = [w]
+        for sign in (1.0, -1.0):
+            v = w
+            for _ in range(120):
+                v = np.nextafter(v, np.float32(sign * np.inf))
+                ws.append(v)
+        b = np.zeros((len(ws), 4), np.float32)
+        b[:, 2], b[:, 3] = h, np.sort(np.float32(ws))
+        rows.append(b)
+    return np.concatenate(rows)[None]
+
+
+@pytest.mark.parametrize("image", [256, 512])
+def test_roi_align_kernel_levels_at_boundaries(cuda, image):
+    """The kernels' FPN levels equal roi_levels on the card for boxes that
+    straddle every level boundary one ulp at a time: with level l filled
+    with l + 1, every output of a box reads its level; then the whole
+    output, on random levels, equals the plain version."""
+    boxes = torch.from_numpy(_boundary_boxes(image)).to(cuda)
+    want = R.roi_levels(boxes, float(image * image), 4)
+    assert sorted(torch.unique(want).tolist()) == [0, 1, 2, 3]
+    shapes = [(image // s, image // s) for s in (4, 8, 16, 32)]
+    flat = [torch.full((1, h, w, 8), float(l + 1), device=cuda) for l, (h, w) in enumerate(shapes)]
+    got = R.roi_align(flat, boxes, (image, image), 2)
+    inside = got[0, :, 0, 0, 0] != 0  # samples inside the map read their level
+    assert bool(inside.any())
+    assert torch.equal(torch.round(got[0, inside, 0, 0, 0]).to(torch.int32) - 1, want[0, inside])
+    rng = np.random.RandomState(image)
+    levels = [torch.from_numpy(rng.randn(1, h, w, 64).astype(np.float32)).to(cuda) for h, w in shapes]
+    _forward_equals_plain(levels, boxes, (image, image), 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_kernel_at_level_boundaries(cuda, dtype):
+    """The backward kernel's levels on boxes straddling every boundary: its
+    gradients against the f64 plain gradient (levels by roi_levels)."""
+    image = 512
+    boxes = torch.from_numpy(_boundary_boxes(image)).to(cuda)
+    shapes = [(image // s, image // s) for s in (4, 8, 16, 32)]
+    rng = np.random.RandomState(7)
+    grad = torch.from_numpy(rng.randn(1, boxes.shape[1], 7, 7, 64).astype(np.float32)).to(cuda, dtype)
+    got = R.roi_align_backward(grad, boxes, shapes, (image, image))
+    _assert_backward_close(got, grad, boxes, shapes, (image, image))
 
 
 @pytest.mark.parametrize("case", ["max_output mid-chunk", "threshold 0", "threshold 1", "class offset",
@@ -122,6 +226,10 @@ def test_roi_align_kernel_rejects_what_it_does_not_take(cuda):
     levels = [torch.zeros(1, 4, s, s, device=cuda).permute(0, 2, 3, 1) for s in (16, 8, 4, 2)]
     with pytest.raises(ValueError, match="contiguous"):
         R.roi_align(levels, boxes, (64, 64), 7)
+    odd = [torch.zeros(1 * s * s * 4 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, s, s, 4)
+           for s in (16, 8, 4, 2)]  # 2 bytes past a 4-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        R.roi_align(odd, boxes, (64, 64), 7)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -201,14 +309,21 @@ def test_roi_align_backward_kernel_rejects_what_it_does_not_take(cuda):
         R.roi_align_backward(torch.zeros(1, 3, 7, 7, 8, device=cuda).half(), boxes, [(16, 16)] * 4, (64, 64))
 
 
-@pytest.mark.parametrize("h,w,g,crop", [(256, 256, 300, (28, 28)), (37, 50, 1, (5, 9)), (8, 8, 3, (2, 2))])
-def test_crop_and_resize_kernel_equals_plain(cuda, h, w, g, crop):
+@pytest.mark.parametrize("index", [torch.int32, torch.int64])
+@pytest.mark.parametrize("h,w,g,crop", [(256, 256, 300, (28, 28)), (37, 50, 1, (5, 9)), (8, 8, 3, (2, 2)),
+                                        (64, 40, 2, (40, 33))])
+def test_crop_and_resize_kernel_equals_plain(cuda, index, h, w, g, crop):
+    """Boxes of every size, a full-image ROI (up to 2 ph x 2 pw distinct
+    taps), one partly outside the map, zero boxes, an inverted box; G = 1
+    and 300; the assignment as int32 or int64, read without a cast."""
     rng = np.random.RandomState(h + g)
     masks = torch.from_numpy((rng.rand(2, h, w, g) > 0.5).astype(np.float32) * rng.rand(2, h, w, g).astype(np.float32))
     boxes = _boxes(rng, 2, 20)
     boxes[:, 0] = [-0.3, 0.2, 0.6, 1.4]
+    boxes[:, 1] = [0.0, 0.0, 1.0, 1.0]
+    boxes[:, 2] = [0.7, 0.6, 0.3, 0.1]
     boxes[:, -2:] = 0.0
-    assign = torch.from_numpy(rng.randint(0, g, (2, 20)))
+    assign = torch.from_numpy(rng.randint(0, g, (2, 20))).to(index)
     args = (masks.to(cuda), torch.from_numpy(boxes).to(cuda), assign.to(cuda))
     before = R.crop_and_resize.launches
     got = R.crop_and_resize(*args, crop)
@@ -228,3 +343,5 @@ def test_crop_and_resize_kernel_rejects_what_it_does_not_take(cuda):
         R.crop_and_resize(masks, boxes, assign, (1, 4))
     with pytest.raises(ValueError, match="one device"):
         R.crop_and_resize(masks, boxes.cpu(), assign, (4, 4))
+    with pytest.raises(TypeError, match="int32 or int64"):
+        R.crop_and_resize(masks, boxes, assign.to(torch.int16), (4, 4))

@@ -152,3 +152,55 @@ def test_plain_roi_align_equals_pallas_kernels(interpret_pallas, kernel):
     )
     got = roi_align([torch.from_numpy(f) for f in feats], torch.from_numpy(boxes[None]), (512, 512), 7)
     np.testing.assert_allclose(got[0].numpy(), ref, atol=1e-5)
+
+
+def _kernel_levels(boxes, image_shape):
+    """The CUDA kernels' level rule (``sampling.cuh::fpn_level``) in numpy
+    f32, with the wrapper's reciprocal of the rule's denominator."""
+    from caesar_mrcnn_tpu_torch.ops.roi_align import _level_inv_denom
+
+    h = boxes[..., 2] - boxes[..., 0]
+    w = boxes[..., 3] - boxes[..., 1]
+    scale = np.sqrt(np.maximum(h * w, np.float32(1e-12))) * np.float32(_level_inv_denom(image_shape))
+    return np.clip(np.float32(4.0) + np.rint(np.log2(scale)), 2, 5).astype(np.int32) - 2
+
+
+@pytest.mark.parametrize("image", [256, 512, 1024])
+def test_kernel_level_rule_equals_jax_roi_levels(image):
+    """Away from the boundaries, where the last ulp of a division decides and
+    the card's roi_levels rounds as the kernels do, the kernels' rule is
+    JAX's roi_levels."""
+    rng = np.random.RandomState(image)
+    y1, x1 = rng.uniform(0, 0.9, (2, 4000))
+    h, w = np.exp(rng.uniform(np.log(0.003), np.log(2.0), (2, 4000)))
+    boxes = np.stack([y1, x1, y1 + h, x1 + w], -1).astype(np.float32)
+    boxes[::50] = 0.0
+    exact = np.log2(np.sqrt(np.float64(h) * w) * image / 224.0)
+    away = np.abs(exact - np.floor(exact) - 0.5) > 1e-4
+    away[::50] = True
+    got = _kernel_levels(boxes, (image, image))
+    want = np.asarray(roi_levels(jnp.asarray(boxes), float(image * image), 4))
+    assert np.array_equal(got[away], want[away])
+    assert set(got[away].tolist()) == {0, 1, 2, 3}
+
+
+def test_kernel_vector_width_follows_c_and_alignment():
+    """The forward kernel's lane vector: the widest of 16, 8 and 4 bytes
+    (two channels at least) that C's bytes and every level's address allow."""
+    from caesar_mrcnn_tpu_torch.ops.roi_align import _vector_bytes
+
+    def levels(dtype, c, offset):
+        buf = torch.zeros(4 * (c * 16 + offset), dtype=dtype)
+        return [buf[offset + i * c * 16:][:c * 16].view(1, 4, 4, c) for i in range(4)]
+
+    for dtype, c, offset, want in [(torch.bfloat16, 256, 0, 16), (torch.bfloat16, 256, 4, 8),
+                                   (torch.bfloat16, 256, 2, 4), (torch.bfloat16, 66, 0, 4),
+                                   (torch.bfloat16, 68, 0, 8), (torch.float32, 256, 0, 16),
+                                   (torch.float32, 256, 2, 8), (torch.float32, 66, 0, 8)]:
+        lv = levels(dtype, c, offset)
+        assert lv[0].data_ptr() % 16 == offset * lv[0].element_size() % 16
+        assert _vector_bytes(lv, c, lv[0].element_size()) == want, (dtype, c, offset)
+    for dtype, offset in [(torch.bfloat16, 1), (torch.float32, 1)]:
+        lv = levels(dtype, 256, offset)
+        with pytest.raises(ValueError, match="aligned"):
+            _vector_bytes(lv, 256, lv[0].element_size())
