@@ -2,8 +2,10 @@
 
 The JAX package ``caesar_mrcnn_tpu`` stays the reference; this package runs
 its serving ``detect`` path (tiles -> Mask R-CNN -> per-tile detections and
-masks) and its training path (``TrainingPipeline`` -> ``forward_train`` ->
-losses -> backward -> optimizer) with PyTorch on an NVIDIA Hopper card.
+masks), the host layer on it (``analysis``: ``SFinder`` catalogs and DS9
+regions, ``ModelTester`` evaluation) and its training path
+(``TrainingPipeline`` -> ``forward_train`` -> losses -> backward ->
+optimizer) with PyTorch on an NVIDIA Hopper card.
 NMS, multilevel ROIAlign and its gradient, and the mask-target
 crop_and_resize are hand-written CUDA kernels (``csrc/``), built at first
 use; every other stage is plain PyTorch.
@@ -11,9 +13,10 @@ use; every other stage is plain PyTorch.
 The host modules it needs keep the JAX package's module paths as copies of
 their own (``config``, ``data.dataset``, ``data.augment``,
 ``utils.anchors``, ``utils.fits``, ``utils.zscale``, ``utils.tiles``,
-``models.debug_rois`` and the C++ host library ``native``), so this package
-imports nothing of ``caesar_mrcnn_tpu``, and no jax, flax, optax, orbax,
-cv2 or matplotlib.
+``utils.graph``, ``utils.stats``, ``models.debug_rois``, ``evalmetrics``,
+``analysis`` and the C++ host library ``native``), so this package imports
+nothing of ``caesar_mrcnn_tpu``, and no jax, flax, optax, orbax, cv2,
+networkx or matplotlib.
 """
 
 import logging

@@ -1,16 +1,20 @@
 """ctypes bindings for the native host-path kernels (libfastops.so).
 
-The port's copy of ``caesar_mrcnn_tpu/native``, with the four entry points
+The port's copy of ``caesar_mrcnn_tpu/native``, with the six entry points
 the port calls: ``iou_matrix`` and ``rpn_anchor_stats`` (RPN targets,
 ``models/targets.py``), ``zscale_limits`` and ``stretch_to_u8`` (FITS
-preprocessing, ``utils/fits.py`` and ``utils/zscale.py``).
+preprocessing, ``utils/fits.py`` and ``utils/zscale.py``), ``mask_iou`` and
+``masks_connected`` (the Analyzer's merge, ``analysis/masks.py``); and one
+of its own, ``find_contours``, the outer-border tracer that stands where
+the JAX package calls ``cv2.findContours`` (``analysis/contours.py``).
 
 The library is built with ``make`` (``Makefile`` beside this file) at first
 use into ``build/native/`` at the repository root, under a file lock so
 that concurrent processes build it once, and named by a hash of the source,
 the Makefile and the host CPU (the build uses ``-march=native``). Nothing
-is built when this module is imported. Every entry point has the JAX
-package's numpy fallback for a machine without a compiler;
+is built when this module is imported. Every entry point has a plain
+fallback for a machine without a compiler (the JAX package's numpy ones,
+and ``analysis/contours.py::find_contours_plain`` for the tracer);
 :func:`available` says whether the library loaded.
 
 Build by hand: ``make -C caesar_mrcnn_tpu_torch/native OUT=/abs/path/libfastops.so``.
@@ -26,7 +30,7 @@ import os
 import platform
 import subprocess
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -108,6 +112,23 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
         ctypes.c_double, ctypes.c_double, ctypes.POINTER(ctypes.c_uint8),
     ]
+    lib.mask_iou.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64,
+    ]
+    lib.mask_iou.restype = ctypes.c_double
+    lib.masks_connected.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.masks_connected.restype = ctypes.c_int
+    lib.find_contours_external.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.find_contours_external.restype = ctypes.c_int64
     return lib
 
 
@@ -212,3 +233,61 @@ def stretch_to_u8(data: np.ndarray, vmin: float, vmax: float) -> np.ndarray:
         _fptr(flat), flat.size, vmin, vmax, _u8ptr(out)
     )
     return out
+
+
+def mask_iou(m1: np.ndarray, m2: np.ndarray) -> float:
+    lib = _load()
+    a = np.ascontiguousarray(m1, dtype=np.uint8)
+    b = np.ascontiguousarray(m2, dtype=np.uint8)
+    if lib is None:
+        from ..analysis.masks import mask_iou as np_iou
+
+        return np_iou(a, b)
+    return float(lib.mask_iou(_u8ptr(a), _u8ptr(b), a.size))
+
+
+def masks_connected(m1: np.ndarray, m2: np.ndarray) -> bool:
+    lib = _load()
+    a = np.ascontiguousarray(m1, dtype=np.uint8)
+    b = np.ascontiguousarray(m2, dtype=np.uint8)
+    if lib is None:
+        from ..analysis.masks import are_masks_connected
+
+        return are_masks_connected(a, b)
+    h, w = a.shape
+    return bool(lib.masks_connected(_u8ptr(a), _u8ptr(b), h, w))
+
+
+def find_contours(mask: np.ndarray) -> List[np.ndarray]:
+    """Outer borders of the nonzero pixels of a 2-D mask as
+    ``cv2.findContours(mask, RETR_EXTERNAL, CHAIN_APPROX_NONE)`` lists them:
+    int32 ``[N, (x, y)]`` arrays. Falls back to
+    ``analysis.contours.find_contours_plain``."""
+    lib = _load()
+    if lib is None:
+        from ..analysis.contours import find_contours_plain
+
+        return find_contours_plain(mask)
+    m = np.ascontiguousarray(mask)
+    if m.ndim != 2:
+        raise ValueError(f"find_contours takes a 2-D mask, got shape {m.shape}")
+    m = np.ascontiguousarray(m != 0, dtype=np.uint8)
+    h, w = m.shape
+    # a first guess (a walk passes a pixel at most a few times); the tracer
+    # returns what it needed, and a second call gets that
+    cap_points = cap_contours = 4 * int(np.count_nonzero(m)) + 1
+    n_contours = ctypes.c_int64()
+    while True:
+        points = np.empty((cap_points, 2), np.int32)
+        lengths = np.empty(cap_contours, np.int64)
+        total = lib.find_contours_external(
+            _u8ptr(m), h, w, points.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), cap_points,
+            lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), cap_contours,
+            ctypes.byref(n_contours),
+        )
+        if total <= cap_points and n_contours.value <= cap_contours:
+            break
+        cap_points, cap_contours = max(cap_points, total), max(cap_contours, n_contours.value)
+    lengths = lengths[: n_contours.value]
+    # the tracer lists the borders in scan order, OpenCV last found first
+    return [points[s - n : s].copy() for s, n in zip(np.cumsum(lengths), lengths)][::-1]

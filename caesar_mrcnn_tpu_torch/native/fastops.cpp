@@ -1,13 +1,15 @@
-// Native host-path kernels for the data pipeline (the port's copy of
-// caesar_mrcnn_tpu/native/fastops.cpp, with the four functions the port
-// calls).
+// Native host-path kernels for the data pipeline and post-processing (the
+// port's copy of caesar_mrcnn_tpu/native/fastops.cpp, with the six
+// functions the port calls, plus the contour tracer that replaces the JAX
+// package's cv2.findContours).
 //
 // The reference delegated its host hot loops to numpy/astropy Python code:
 // the O(anchors x GT) RPN-target IoU matrix (reference:
-// mrcnn/model.py:1536-1644 via utils.compute_overlaps) and the per-image
-// zscale stretch (reference: mrcnn/utils.py:1166-1172, astropy C-backed).
-// These are re-implemented here in C++ with OpenMP-free portable loops,
-// exposed through a plain C ABI for ctypes.
+// mrcnn/model.py:1536-1644 via utils.compute_overlaps), the per-image
+// zscale stretch (reference: mrcnn/utils.py:1166-1172, astropy C-backed),
+// and the O(N^2) mask pair tests in the analyzer merge step (reference:
+// mrcnn/analyze.py:1262-1311). These are re-implemented here in C++ with
+// OpenMP-free portable loops, exposed through a plain C ABI for ctypes.
 //
 // Build: make -C caesar_mrcnn_tpu_torch/native OUT=<path>/libfastops.so
 // (the package builds it at first use into build/native/).
@@ -246,6 +248,157 @@ void stretch_to_u8(const float* data, int64_t n, double vmin, double vmax,
     v = v < 0.0 ? 0.0 : (v > 1.0 ? 1.0 : v);
     out[i] = (uint8_t)std::lround(v * 255.0);
   }
+}
+
+// Binary-mask IoU for two same-shape uint8 masks.
+double mask_iou(const uint8_t* m1, const uint8_t* m2, int64_t n) {
+  int64_t inter = 0, uni = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const bool a = m1[i] != 0, b = m2[i] != 0;
+    inter += (a && b);
+    uni += (a || b);
+  }
+  return uni > 0 ? (double)inter / (double)uni : 0.0;
+}
+
+// 8-connectivity adjacency between two same-shape masks: true when some
+// pixel pair is within |dx|<=1, |dy|<=1 (the reference's merge criterion,
+// mrcnn/analyze.py:2154-2173).
+int masks_connected(const uint8_t* m1, const uint8_t* m2, int64_t h,
+                    int64_t w) {
+  for (int64_t y = 0; y < h; ++y) {
+    for (int64_t x = 0; x < w; ++x) {
+      if (!m1[y * w + x]) continue;
+      const int64_t y0 = std::max<int64_t>(0, y - 1);
+      const int64_t y1 = std::min<int64_t>(h - 1, y + 1);
+      const int64_t x0 = std::max<int64_t>(0, x - 1);
+      const int64_t x1 = std::min<int64_t>(w - 1, x + 1);
+      for (int64_t yy = y0; yy <= y1; ++yy)
+        for (int64_t xx = x0; xx <= x1; ++xx)
+          if (m2[yy * w + xx]) return 1;
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"
+
+// ----------------------------------------------------------- contours
+//
+// Outer borders of a binary mask, as OpenCV's
+// cv::findContours(mask, RETR_EXTERNAL, CHAIN_APPROX_NONE) finds them: the
+// border following of Suzuki & Abe (1985) in OpenCV's form (its
+// icvFetchContour and the RETR_EXTERNAL branch of its raster scan). The
+// mask is copied into a frame one pixel wider on each side, so borders on
+// the image edge are followed like any other (OpenCV >= 3.2 does the same).
+// Pixels of the frame hold 0 (background), 1 (object), 2 (a followed
+// border pixel) or kRightEdge (a followed border pixel whose right
+// neighbour was examined as background).
+
+namespace {
+
+// Chain-code directions (OpenCV's): 0 right, 1 up-right, 2 up, 3 up-left,
+// 4 left, 5 down-left, 6 down, 7 down-right (y grows downward).
+constexpr int kDx[8] = {1, 1, 0, -1, -1, -1, 0, 1};
+constexpr int kDy[8] = {0, -1, -1, -1, 0, 1, 1, 1};
+constexpr int8_t kRightEdge = (int8_t)(2 | -128);
+
+// Follows the outer border that starts at frame pixel i0 = (x, y), whose
+// left neighbour is background, and marks it. Writes up to `room` points
+// (x, y) in mask coordinates to `out`; returns the border's point count.
+int64_t follow_border(int8_t* img, const int64_t* delta, int64_t i0,
+                      int32_t x, int32_t y, int32_t* out, int64_t room) {
+  int64_t n = 0;
+  auto put = [&](int32_t px, int32_t py) {
+    if (n < room) {
+      out[2 * n] = px - 1;
+      out[2 * n + 1] = py - 1;
+    }
+    ++n;
+  };
+  // the last border pixel: the first object pixel clockwise from the left
+  int s = 4;
+  const int s_first = 4;
+  int64_t i1;
+  do {
+    s = (s - 1) & 7;
+    i1 = i0 + delta[s];
+  } while (img[i1] == 0 && s != s_first);
+  if (s == s_first) {  // a single pixel
+    img[i0] = kRightEdge;
+    put(x, y);
+    return n;
+  }
+  int64_t i3 = i0, i4 = i0;
+  for (;;) {
+    // next border pixel: counterclockwise from the one after the previous
+    const int s_end = s;
+    do {
+      i4 = i3 + delta[++s];
+    } while (img[i4] == 0 && s < 15);
+    s &= 7;
+    if ((unsigned)(s - 1) < (unsigned)s_end) {
+      img[i3] = kRightEdge;
+    } else if (img[i3] == 1) {
+      img[i3] = 2;
+    }
+    put(x, y);
+    x += kDx[s];
+    y += kDy[s];
+    if (i4 == i0 && i3 == i1) break;
+    i3 = i4;
+    s = (s + 4) & 7;
+  }
+  return n;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Outer borders of the nonzero pixels of an h x w uint8 mask, in the order
+// the raster scan finds them (OpenCV lists them in the reverse order), each
+// from its raster-first pixel and counterclockwise on the screen, with
+// every pixel of the walk (a border that doubles back over a 1-pixel line
+// lists its pixels twice). Writes up to max_points points (x, y) as int32
+// pairs to `points` and up to max_contours point counts to `lengths`, sets
+// *n_contours, and returns the number of points of all borders: a caller
+// whose buffers were too small calls again with larger ones.
+int64_t find_contours_external(const uint8_t* mask, int64_t h, int64_t w,
+                               int32_t* points, int64_t max_points,
+                               int64_t* lengths, int64_t max_contours,
+                               int64_t* n_contours) {
+  const int64_t W = w + 2, H = h + 2;
+  std::vector<int8_t> img(W * H, 0);
+  for (int64_t y = 0; y < h; ++y)
+    for (int64_t x = 0; x < w; ++x)
+      img[(y + 1) * W + x + 1] = mask[y * w + x] != 0;
+  int64_t delta[16];
+  for (int s = 0; s < 8; ++s) delta[s] = delta[s + 8] = kDy[s] * W + kDx[s];
+  int64_t total = 0, count = 0;
+  for (int64_t y = 1; y < H - 1; ++y) {
+    int64_t lnbd = y * W;  // the last border pixel met on this row
+    int prev = 0;
+    for (int64_t x = 1; x < W - 1; ++x) {
+      const int64_t i = y * W + x;
+      if (img[i] == prev) continue;
+      // an outer border starts here unless it lies in a hole of a border
+      // already followed (RETR_EXTERNAL)
+      if (prev == 0 && img[i] == 1 && img[lnbd] <= 0) {
+        const int64_t room = std::max<int64_t>(0, max_points - total);
+        const int64_t n = follow_border(img.data(), delta, i, (int32_t)x,
+                                        (int32_t)y, points + 2 * std::min(total, max_points), room);
+        if (count < max_contours) lengths[count] = n;
+        ++count;
+        total += n;
+        lnbd = i;
+      }
+      prev = img[i];
+      if (prev & -2) lnbd = i;
+    }
+  }
+  *n_contours = count;
+  return total;
 }
 
 }  // extern "C"

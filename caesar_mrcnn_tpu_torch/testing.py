@@ -1,4 +1,5 @@
-"""Comparison of two detectors' per-image results that allows for near ties.
+"""Comparison of two detectors' per-image results that allows for near ties,
+of two source catalogs, and the weights that make detectors comparable.
 
 Random weights make near-tied detection scores common, and two detectors
 whose arithmetic differs in the last bits (JAX against PyTorch, or the card
@@ -15,6 +16,7 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 
 def settle_flax_weights(variables: Dict) -> Dict:
@@ -92,4 +94,54 @@ def compare_detections(ref: Dict, got: Dict, gap: float = 1e-4) -> Dict:
         a = np.asarray(ref["masks"])[..., ii]
         b = np.asarray(got["masks"])[..., jj]
         out["mask_pixels_differ"] = int((a != b).sum())
+    return out
+
+
+def pin_heads(model) -> None:
+    """Pin the detection heads of a ``MaskRCNN`` (in place): the class-logit
+    and box-delta kernels zeroed, the box biases 0, the class biases 0 but
+    class 2's 6, the mask kernel zeroed and its biases 3 (the JAX package's
+    dryrun recipe, ``__graft_entry__.py:224-246``). Every ROI is then class
+    2 at one score, its box the proposal's and its mask the whole box, so
+    that two detectors' catalogs do not hang on float jitter at a score or
+    mask threshold."""
+    ch, mask = model.classifier_head, model.mask_head.mrcnn_mask
+    with torch.no_grad():
+        for layer in (ch.mrcnn_class_logits, ch.mrcnn_bbox_fc, mask):
+            layer.weight.zero_()
+            layer.bias.zero_()
+        ch.mrcnn_class_logits.bias[2] = 6.0
+        mask.bias.fill_(3.0)
+
+
+def catalog_differences(ref: Dict, got: Dict, rtol: float = 0.0, score_atol: float = 0.0) -> List[str]:
+    """Where two source catalogs (``SFinder`` output, as read back from its
+    JSON) differ, as a list of ``path: ref != got`` lines, empty when they
+    agree. Every value must be equal (names, classes, boxes, pixels,
+    ``vertexes``, flags, the source count), but for the floats under
+    ``pars`` (within ``rtol`` relative) and each ``score`` (within
+    ``score_atol``)."""
+    out: List[str] = []
+
+    def walk(a, b, path: str, in_pars: bool) -> None:
+        if isinstance(a, dict) and isinstance(b, dict):
+            if sorted(a) != sorted(b):
+                out.append(f"{path}: keys {sorted(a)} != {sorted(b)}")
+                return
+            for k in a:
+                walk(a[k], b[k], f"{path}.{k}", in_pars or k == "pars")
+        elif isinstance(a, list) and isinstance(b, list):
+            if len(a) != len(b):
+                out.append(f"{path}: {len(a)} != {len(b)} entries")
+                return
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{path}[{i}]", in_pars)
+        elif isinstance(a, float) and isinstance(b, float) and (in_pars or path.endswith(".score")):
+            tol = score_atol if path.endswith(".score") else rtol * abs(a)
+            if not abs(a - b) <= tol:
+                out.append(f"{path}: {a!r} != {b!r}")
+        elif type(a) is not type(b) or a != b:
+            out.append(f"{path}: {a!r} != {b!r}")
+
+    walk(ref, got, "catalog", False)
     return out

@@ -131,3 +131,24 @@ def denorm_boxes(boxes: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
     scale = np.array([h - 1, w - 1, h - 1, w - 1])
     shift = np.array([0, 0, 1, 1])
     return np.around(np.asarray(boxes) * scale + shift).astype(np.int32)
+
+
+def compute_overlaps_masks(masks1: np.ndarray, masks2: np.ndarray) -> np.ndarray:
+    """Mask-IoU matrix of two [H, W, N] stacks (numpy, as
+    ``utils/boxes.py::compute_overlaps_masks``)."""
+    if masks1.shape[-1] == 0 or masks2.shape[-1] == 0:
+        return np.zeros((masks1.shape[-1], masks2.shape[-1]))
+    m1 = np.reshape(masks1 > 0.5, (-1, masks1.shape[-1])).astype(np.float32)
+    m2 = np.reshape(masks2 > 0.5, (-1, masks2.shape[-1])).astype(np.float32)
+    area1 = m1.sum(axis=0)
+    area2 = m2.sum(axis=0)
+    inter = m1.T @ m2
+    union = area1[:, None] + area2[None, :] - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(union > 0, inter / union, 0.0)
+
+
+def trim_zeros(x: np.ndarray) -> np.ndarray:
+    """Drop all-zero rows (numpy, as ``utils/boxes.py::trim_zeros``)."""
+    assert x.ndim == 2
+    return x[~np.all(x == 0, axis=1)]

@@ -23,7 +23,19 @@ Phases, one line each:
    bf16, 6000 pre-NMS / 1000 post-NMS / 100 detections);
 5. parity: one tile at f32 through the card's detector and the same
    detector on the CPU, where the plain versions run;
-6. train: 20 Adam steps of the training flagship (ResNet-101, FPN 256,
+6. catalog: the host layer, ``SFinder.run_tiled``, over the same mosaic
+   at the same width (16 tiles, batch 8, bf16): launches (2 NMS and 2
+   ROIAlign per batch), the catalog and DS9 file written and read back,
+   sources, merged and edge sources; then a timed second run: wall
+   seconds, tiles/s, the detector's share (dispatch, wait, unmold) and
+   SFinder's own host steps (per-tile analysis, merge, source parameters,
+   writing);
+7. catalog parity: ``SFinder.run_tiled`` at f32 with pinned heads
+   (``testing.pin_heads``) over a seeded 1024^2 mosaic (4 tiles, batch 4,
+   a bright block straddling a tile boundary), on the card and on the CPU:
+   the two catalogs equal (sources, boxes, pixels and contours exactly;
+   scores within 1e-5; source parameters within 1e-6 relative);
+8. train: 20 Adam steps of the training flagship (ResNet-101, FPN 256,
    256^2, batch 8, bf16, 2000 post-NMS proposals, 512 ROIs, 300 GT) on a
    seeded 16-image FITS dataset read through ``SourceDataset`` and the
    port's ``TrainingPipeline`` (compact wire); then all four kernels
@@ -31,14 +43,14 @@ Phases, one line each:
    boxes before NMS, its sampled ROIs, its mask-target crop's GT masks,
    boxes and channels), which are saved to ``build/train_step_boxes.pt``
    for ``caesar_mrcnn_tpu_torch/kernel_bench.py``;
-7. train parity: one f32 SGD step of ResNet-101 at batch 2, 128^2, on the
+9. train parity: one f32 SGD step of ResNet-101 at batch 2, 128^2, on the
    card and on the CPU from the same weights, batch and priorities: losses
    and gradients.
 
 Then the card's name and power limit, one JSON line with the kernels'
-record (launches on the main paths; error, kernel, plain and bound times
-summed over the cases; ``library_ms`` null, with the reason beside it),
-and as the last line
+record (launches on the main paths: detect, catalog and train; error,
+kernel, plain and bound times summed over the cases; ``library_ms`` null,
+with the reason beside it), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result line. It needs a CUDA device and never falls
 back to the CPU.
@@ -470,6 +482,195 @@ def check_parity(card_name: str) -> None:
         raise AssertionError(f"unmolded card/CPU results differ: {res}")
 
 
+# ------------------------------------------------------------------ catalog
+
+
+class TimedDetector:
+    """The detector as SFinder sees it, with the wall seconds of its calls:
+    ``dispatch`` (H2D copy and enqueue), ``wait`` (until the batch's
+    results are on the host) and ``unmold`` (host unmold, ``collect``'s
+    other half)."""
+
+    def __init__(self, det):
+        self.det = det
+        self.config = det.config
+        self.seconds = {"dispatch": 0.0, "wait": 0.0, "unmold": 0.0}
+
+    def _timed(self, span: str, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.seconds[span] += time.perf_counter() - t
+
+    def dispatch_tiles(self, tiles):
+        return self._timed("dispatch", self.det.dispatch_tiles, tiles)
+
+    def collect(self, handle):
+        return self._timed("unmold", self.det.unmold_fetched, self._timed("wait", self.det.fetch, handle))
+
+    def detect(self, images):
+        return self._timed("wait", self.det.detect, images)
+
+
+def time_host_spans(sf) -> dict:
+    """Wall seconds of SFinder's own host work, by step: per-tile analysis
+    (``_tile_sources``: Analyzer masks, contours, catalog entries), the
+    cross-tile merge, the source parameters (FITS re-read, moments, WCS)
+    and writing the catalog and DS9 files. Wraps the instance's methods."""
+    spans = {}
+    for name in ("_tile_sources", "_merge_edge_sources", "_add_source_params", "save"):
+        fn = getattr(sf, name)
+        spans[name] = 0.0
+
+        def timed(*args, _fn=fn, _name=name, **kwargs):
+            t = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                spans[_name] += time.perf_counter() - t
+
+        setattr(sf, name, timed)
+    return spans
+
+
+def run_catalog(det, cfg, path: str, out: str):
+    """SFinder.run_tiled on ``path``, the catalog and DS9 file written to
+    ``out``.json / ``out``.reg: (sources, catalog read back, DS9 text,
+    wall seconds, host spans)."""
+    from caesar_mrcnn_tpu_torch.analysis.sfinder import SFinder
+
+    sf = SFinder(det, cfg)
+    sf.outfile_json, sf.outfile_ds9 = f"{out}.json", f"{out}.reg"
+    spans = time_host_spans(sf)
+    t = time.perf_counter()
+    sources = sf.run_tiled(path)
+    wall = time.perf_counter() - t
+    with open(sf.outfile_json) as f:
+        catalog = json.load(f)
+    with open(sf.outfile_ds9) as f:
+        regions = f.read()
+    return sources, catalog, regions, wall, spans
+
+
+def check_catalog_files(sources: dict, catalog: dict, regions: str, nx: int, ny: int) -> int:
+    """The catalog read back equals what run_tiled returned (names, boxes,
+    pixel counts), every source's box lies in the mosaic, and the DS9 file
+    holds one polygon per source border of 3 points or more (``vertexes``),
+    named after its source. Returns the sources without a polygon (1 or 2
+    pixels)."""
+    objs = catalog["objs"]
+    if not objs:
+        raise AssertionError("empty catalog")
+    back = [(o["name"], o["x1"], o["x2"], o["y1"], o["y2"], len(o["pixels"])) for o in objs]
+    ran = [(o["name"], o["x1"], o["x2"], o["y1"], o["y2"], len(o["pixels"])) for o in sources["objs"]]
+    if back != ran:
+        raise AssertionError("the catalog read back differs from run_tiled's sources")
+    outside = [o["name"] for o in objs if not (0 <= o["x1"] <= o["x2"] <= nx and 0 <= o["y1"] <= o["y2"] <= ny)]
+    if outside:
+        raise AssertionError(f"sources with a box outside the {nx} x {ny} mosaic: {outside[:10]}")
+    lines = [line for line in regions.splitlines() if line.startswith("polygon(")]
+    named = sorted(line.split("text={", 1)[1].split("}", 1)[0] for line in lines)
+    expected = sorted(o["name"] for o in objs for _ in o["vertexes"])
+    if named != expected:
+        raise AssertionError(f"DS9 file: {len(lines)} polygons, expected {len(expected)} (one per border)")
+    return sum(1 for o in objs if not o["vertexes"])
+
+
+def check_catalog(card_name: str) -> dict:
+    """SFinder.run_tiled on the card at the serving flagship's full width
+    (settled random weights, every detection kept) over the seeded 2048^2
+    mosaic (16 tiles of 512^2, steps 1.0): launches,
+    the catalog's checks, then a second, timed run split into the
+    detector's time and SFinder's own host work."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch.inference.detector import build_detector
+    from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
+    from caesar_mrcnn_tpu_torch.ops.roi_align import roi_align
+    from caesar_mrcnn_tpu_torch.utils.tiles import generate_tiles
+
+    # Keep every detection, whatever its random score: the host layer is
+    # measured at the slice's 100 detections per tile
+    cfg = flagship_config(score_thr=0.0)
+    n = 2048
+    tiles = len(generate_tiles(0, n, 0, n, cfg.tile_xsize, cfg.tile_ysize, cfg.tile_xstep, cfg.tile_ystep))
+    batches = -(-tiles // cfg.batch_size)
+    det = build_detector(cfg, seed=SEED, device="cuda")
+    settle_random_weights(det.model)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mosaic.fits")
+        write_mosaic(path, n)
+        torch.cuda.synchronize()
+        nms_padded.launches = roi_align.launches = 0
+        sources, catalog, regions, _, _ = run_catalog(det, cfg, path, os.path.join(tmp, "catalog"))
+        launches = {"nms": nms_padded.launches, "roi_align": roi_align.launches}
+        if launches != {"nms": 2 * batches, "roi_align": 2 * batches}:
+            raise AssertionError(f"catalog launches {launches}, expected 2 per batch x {batches}")
+        no_polygon = check_catalog_files(sources, catalog, regions, n, n)
+        timed = TimedDetector(det)
+        _, again, _, wall, spans = run_catalog(timed, cfg, path, os.path.join(tmp, "timed"))
+    objs = catalog["objs"]
+    merged = sum(bool(o.get("merged")) for o in objs)
+    edge = sum(bool(o.get("edge")) for o in objs)
+    scores = [o["score"] for o in objs]
+    waited = sum(timed.seconds.values())
+    print(f"catalog: SFinder.run_tiled, {tiles} tiles of 512^2 from the seeded {n}^2 FITS mosaic, ResNet-101 "
+          f"batch 8 bf16, launches {launches}: {len(objs)} sources ({merged} merged across tiles, {edge} edge, "
+          f"{no_polygon} without a DS9 polygon: under 3 border points; scores {min(scores):.3f}-"
+          f"{max(scores):.3f}); catalog JSON and DS9 file read back [{card_name}]")
+    print(f"catalog: timed second run {wall:.3f} s wall, {tiles / wall:.2f} tiles/s; detector "
+          f"{waited:.3f} s ({waited / wall:.3f} of the wall: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in timed.seconds.items())
+          + "); SFinder host: " + ", ".join(f"{k.strip('_')} {v:.3f}" for k, v in spans.items())
+          + f" s; catalog {'equal to' if again == catalog else 'DIFFERENT from'} the first run's [{card_name}]")
+    return launches
+
+
+def write_blocks_mosaic(path: str, ny: int, nx: int, seed: int = SEED) -> None:
+    """Seeded noise with two bright blocks: one inside the first tile, one
+    straddling the x = 512 tile boundary."""
+    from caesar_mrcnn_tpu_torch.utils.fits import write_fits
+
+    rng = np.random.RandomState(seed)
+    img = rng.normal(0.0, 0.05, (ny, nx)).astype(np.float32)
+    img[100:160, 120:200] += 10.0
+    img[300:380, 470:560] += 10.0
+    write_fits(img, path, header={"BMAJ": 1.5e-3, "BMIN": 1.2e-3, "CDELT1": -2.8e-4, "CDELT2": 2.8e-4})
+
+
+def check_catalog_parity(card_name: str) -> None:
+    """SFinder.run_tiled through the serving flagship at f32 with pinned
+    heads (``testing.pin_heads``), batch 4, on the card and on the CPU
+    (the plain versions), over a seeded 1024^2 mosaic of 4 tiles: the two
+    catalogs equal in sources, names, classes, boxes, pixels and
+    ``vertexes``; scores within 1e-5; source parameters within 1e-6
+    relative."""
+    from caesar_mrcnn_tpu_torch.inference.detector import build_detector
+    from caesar_mrcnn_tpu_torch.testing import catalog_differences, pin_heads
+
+    cfg = flagship_config(images_per_device=4, compute_dtype="float32")
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mosaic.fits")
+        write_blocks_mosaic(path, 1024, 1024)
+        for device in ("cuda", "cpu"):
+            det = build_detector(cfg, seed=SEED, device=device)
+            pin_heads(det.model)
+            t = time.perf_counter()
+            out[device] = run_catalog(det, cfg, path, os.path.join(tmp, device))[1]
+            seconds[device] = time.perf_counter() - t
+    card, cpu = out["cuda"], out["cpu"]
+    diffs = catalog_differences(cpu, card, rtol=1e-6, score_atol=1e-5)
+    objs = card["objs"]
+    print(f"catalog parity: 4 tiles of 512^2 from a seeded 1024^2 mosaic, ResNet-101 f32 batch 4, heads pinned: "
+          f"card {len(objs)} sources ({sum(bool(o.get('merged')) for o in objs)} merged), CPU {len(cpu['objs'])}; "
+          f"{len(diffs)} differences (sources, names, classes, boxes, pixels, vertexes exactly; scores 1e-5; "
+          f"pars 1e-6 relative); card {seconds['cuda']:.2f} s, CPU {seconds['cpu']:.2f} s [{card_name}]")
+    if not objs or diffs:
+        raise AssertionError("card and CPU catalogs differ:\n" + "\n".join(diffs[:20]))
+
+
 # -------------------------------------------------------------------- train
 
 
@@ -744,17 +945,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     detect = check_slice(card_name)
     check_parity(card_name)
+    catalog = check_catalog(card_name)
+    check_catalog_parity(card_name)
     with tempfile.TemporaryDirectory() as tmp:
         ds = load_train_dataset(write_train_dataset(tmp))
         train, captured = check_train(ds, card_name)
         check_train_step_boxes(captured, {"nms": nms, "roi_align": roi, "roi_align_backward": roi_bwd,
                                           "crop_and_resize": crop}, card_name)
         check_train_parity(ds, card_name)
-    print(f"launches: detect path {detect}, train path {train}")
+    print(f"launches: detect path {detect}, catalog path {catalog}, train path {train}")
 
     def record(name, source, replaces, rec):
         return {"name": name, "route": "cuda", "source": f"caesar_mrcnn_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": detect.get(name, 0) + train[name],
+                "replaces": replaces, "launches": detect.get(name, 0) + catalog.get(name, 0) + train[name],
                 "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": max(rec["by"], key=rec["by"].get), "library_ms": None,
                 "library": NO_LIBRARY[name]}

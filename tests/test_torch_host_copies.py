@@ -1,7 +1,9 @@
 """The port's copies of the JAX package's host modules against their
 originals, on the CPU, on seeded inputs: the configuration and its presets,
 the anchors, FITS writing and reading, zscale, tiling, the augmentations,
-the debug ROIs, the dataset and the native host library.
+the debug ROIs, the dataset, the native host library, and the host layer's
+pieces: the graph and statistics helpers, the evaluation metrics, the DS9
+regions and the ground-truth matching.
 
 Every comparison is exact: the copies run the same numpy code, and the two
 native libraries are built from the same C++ with the same flags. The JAX
@@ -19,23 +21,41 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from scipy import ndimage
 
 from caesar_mrcnn_tpu import config as jconfig
 from caesar_mrcnn_tpu import native as jnative
+from caesar_mrcnn_tpu.analysis import gt_eval as jgt_eval
+from caesar_mrcnn_tpu.analysis import regions as jregions
 from caesar_mrcnn_tpu.data import augment as jaugment
 from caesar_mrcnn_tpu.data import dataset as jdataset
+from caesar_mrcnn_tpu.evalmetrics import ap as jap
+from caesar_mrcnn_tpu.evalmetrics import coco as jcoco
+from caesar_mrcnn_tpu.evalmetrics import voc as jvoc
 from caesar_mrcnn_tpu.models import debug_rois as jdebug
 from caesar_mrcnn_tpu.utils import anchors as janchors
+from caesar_mrcnn_tpu.utils import boxes as jboxes
 from caesar_mrcnn_tpu.utils import fits as jfits
+from caesar_mrcnn_tpu.utils import graph as jgraph
+from caesar_mrcnn_tpu.utils import stats as jstats
 from caesar_mrcnn_tpu.utils import tiles as jtiles
 from caesar_mrcnn_tpu.utils import zscale as jzscale
 from caesar_mrcnn_tpu_torch import config as tconfig
 from caesar_mrcnn_tpu_torch import native as tnative
+from caesar_mrcnn_tpu_torch.analysis import gt_eval as tgt_eval
+from caesar_mrcnn_tpu_torch.analysis import masks as tmasks
+from caesar_mrcnn_tpu_torch.analysis import regions as tregions
 from caesar_mrcnn_tpu_torch.data import augment as taugment
 from caesar_mrcnn_tpu_torch.data import dataset as tdataset
+from caesar_mrcnn_tpu_torch.evalmetrics import ap as tap
+from caesar_mrcnn_tpu_torch.evalmetrics import coco as tcoco
+from caesar_mrcnn_tpu_torch.evalmetrics import voc as tvoc
 from caesar_mrcnn_tpu_torch.models import debug_rois as tdebug
 from caesar_mrcnn_tpu_torch.utils import anchors as tanchors
+from caesar_mrcnn_tpu_torch.utils import boxes as tboxes
 from caesar_mrcnn_tpu_torch.utils import fits as tfits
+from caesar_mrcnn_tpu_torch.utils import graph as tgraph
+from caesar_mrcnn_tpu_torch.utils import stats as tstats
 from caesar_mrcnn_tpu_torch.utils import tiles as ttiles
 from caesar_mrcnn_tpu_torch.utils import zscale as tzscale
 from caesar_mrcnn_tpu_torch.utils.boxes import compute_overlaps
@@ -249,3 +269,131 @@ def test_source_dataset_equals_jax(tmp_path):
         np.testing.assert_array_equal(got.load_image(image_id), ref.load_image(image_id))
         for a, b in zip(got.load_mask(image_id), ref.load_mask(image_id)):
             np.testing.assert_array_equal(a, b)
+
+
+def _blob_masks(rng, h, w, n):
+    """[h, w, n] bool masks of seeded rectangles, some overlapping or
+    touching, some empty."""
+    masks = np.zeros((h, w, n), bool)
+    for i in range(n):
+        if rng.rand() < 0.1:
+            continue
+        y, x = rng.randint(0, h - 4), rng.randint(0, w - 4)
+        masks[y:y + rng.randint(2, 14), x:x + rng.randint(2, 14), i] = True
+    return masks
+
+
+def test_graph_and_stats_equal_jax():
+    """Union-find components in the same order; sigma-clipped statistics
+    exactly equal, NaNs, constant data and empty data included."""
+    rng = np.random.RandomState(7)
+    for _ in range(50):
+        n = rng.randint(1, 40)
+        graphs = (tgraph.Graph(n), jgraph.Graph(n))
+        for _ in range(rng.randint(0, 2 * n)):
+            v, w = rng.randint(0, n, 2)
+            for g in graphs:
+                g.addEdge(int(v), int(w))
+        assert graphs[0].connectedComponents() == graphs[1].connectedComponents()
+    for data in (rng.normal(0, 1, 1000), np.r_[rng.normal(0, 1, 500), [40.0, np.nan, np.inf]],
+                 np.full(10, 3.0), np.array([np.nan]), np.zeros(0)):
+        for sigma, maxiters in ((3.0, 5), (2.0, 1)):
+            got, ref = tstats.sigma_clipped_stats(data, sigma, maxiters), jstats.sigma_clipped_stats(data, sigma, maxiters)
+            np.testing.assert_array_equal(got, ref)
+
+
+def test_evalmetrics_equal_jax(tmp_path):
+    """Matterport AP (with mask IoU and zero-row trimming), the Pascal-VOC
+    table and the COCO sweep give the same values, and the dumps the same
+    files."""
+    rng = np.random.RandomState(8)
+    for _ in range(6):
+        gt_masks, pred_masks = _blob_masks(rng, 48, 48, 5), _blob_masks(rng, 48, 48, 7)
+        gt_masks[..., 0] = pred_masks[..., 0]  # one exact match
+        gt_boxes = np.r_[tboxes.extract_bboxes(gt_masks), np.zeros((2, 4), np.int32)]
+        pred_boxes = tboxes.extract_bboxes(pred_masks).astype(np.float64)
+        gt_ids, pred_ids = rng.randint(1, 4, 7), rng.randint(1, 4, 7)
+        scores = rng.rand(7)
+        args = (gt_boxes, gt_ids, gt_masks, pred_boxes, pred_ids, scores, pred_masks)
+        for a, b in zip(tap.compute_ap(*args), jap.compute_ap(*args)):
+            np.testing.assert_array_equal(a, b)
+        assert tap.compute_ap_range(*args) == jap.compute_ap_range(*args)
+        got, ref = tap.compute_recall(pred_boxes, gt_boxes, 0.3), jap.compute_recall(pred_boxes, gt_boxes, 0.3)
+        assert got[0] == ref[0]
+        np.testing.assert_array_equal(got[1], ref[1])
+        np.testing.assert_array_equal(tboxes.compute_overlaps_masks(gt_masks, pred_masks),
+                                      jboxes.compute_overlaps_masks(gt_masks, pred_masks))
+        np.testing.assert_array_equal(tboxes.trim_zeros(gt_boxes), jboxes.trim_zeros(gt_boxes))
+    names = ("sidelobe", "source", "galaxy")
+    images = {}
+    for image in ("a", "b", "c"):
+        xy = rng.randint(0, 90, (6, 2))
+        images[image] = np.c_[xy, xy + rng.randint(3, 30, (6, 2))].astype(float)
+    gt_rows = [(img, names[i % 3], tuple(b[i])) for img, b in images.items() for i in range(4)]
+    det_rows = [(img, names[(i + k) % 3], tuple(b[i] + k), float(rng.rand()))
+                for img, b in images.items() for i in range(6) for k in (0, 2)]
+    results = {}
+    for mod, out in ((tvoc, "t"), (jvoc, "j")):
+        gts, dets = [mod.BBox(*r) for r in gt_rows], [mod.BBox(*r) for r in det_rows]
+        results[out] = [json.dumps(mod.pascal_voc_metrics(gts, dets, 0.5, method), sort_keys=True,
+                                   default=lambda a: np.asarray(a).tolist())
+                        for method in ("every_point", "eleven_point")]
+        mod.write_padilla_dirs(gts, dets, str(tmp_path / out / "gt"), str(tmp_path / out / "det"))
+        results[out].append([[dataclasses.astuple(b) for b in part] for part in
+                             mod.read_padilla_dirs(str(tmp_path / out / "gt"), str(tmp_path / out / "det"))])
+    assert results["t"] == results["j"]
+    for sub in ("gt", "det"):
+        files = sorted(f.name for f in (tmp_path / "j" / sub).iterdir())
+        assert files == sorted(f.name for f in (tmp_path / "t" / sub).iterdir()) and files
+        for name in files:
+            assert (tmp_path / "t" / sub / name).read_bytes() == (tmp_path / "j" / sub / name).read_bytes()
+    gt = {img: b[:4].tolist() for img, b in images.items()}
+    pred = {img: {"boxes": (b + 1).tolist(), "scores": rng.rand(6).tolist()} for img, b in images.items()}
+    assert tcoco.coco_map(gt, pred) == jcoco.coco_map(gt, pred)
+    for mod, out in ((tcoco, "t"), (jcoco, "j")):
+        mod.write_box_jsons(gt, pred, str(tmp_path / f"{out}gt.json"), str(tmp_path / f"{out}pred.json"))
+    for name in ("gt.json", "pred.json"):
+        assert (tmp_path / f"t{name}").read_bytes() == (tmp_path / f"j{name}").read_bytes()
+
+
+def test_regions_and_gt_eval_equal_jax(tmp_path):
+    """DS9 files byte for byte (colors, tags, border and merged flags,
+    contours under 3 points skipped); ground-truth merging and per-image
+    matching with the same tables."""
+    rng = np.random.RandomState(10)
+    objs = []
+    for i in range(8):
+        polys = [rng.uniform(0, 100, (rng.randint(2, 7), 2)).tolist() for _ in range(rng.randint(0, 3))]
+        objs.append({"name": f"S{i + 1}", "class_name": ("sidelobe", "source", "galaxy", "unknown")[i % 4],
+                     "edge": bool(i % 3 == 0), "merged": bool(i % 4 == 1), "vertexes": polys})
+    for mod, out in ((tregions, "t.reg"), (jregions, "j.reg")):
+        mod.write_ds9_regions(mod.make_regions_from_objs(objs, {"galaxy": "blue"}), str(tmp_path / out))
+    assert (tmp_path / "t.reg").read_bytes() == (tmp_path / "j.reg").read_bytes()
+    names = ("bkg", "sidelobe", "source", "galaxy")
+    for _ in range(6):
+        gt = _blob_masks(rng, 40, 40, 6)
+        gt_ids = rng.randint(1, 4, 6)
+        got, ref = tgt_eval.extract_gt_masks(gt, gt_ids), jgt_eval.extract_gt_masks(gt, gt_ids)
+        assert got[1:] == ref[1:]
+        for a, b in zip(got[0], ref[0]):
+            np.testing.assert_array_equal(a, b)
+        dets = [m.astype(np.uint8) for m in np.moveaxis(_blob_masks(rng, 40, 40, 5), -1, 0)]
+        det_ids, det_scores = list(rng.randint(1, 4, 5)), list(rng.rand(5))
+        evs = [mod.evaluate_image(g[0], g[1], dets, det_ids, det_scores, names, iou_thr=0.3)
+               for mod, g in ((tgt_eval, got), (jgt_eval, ref))]
+        for field in dataclasses.fields(evs[1]):
+            np.testing.assert_array_equal(getattr(evs[0], field.name), getattr(evs[1], field.name))
+
+
+def test_native_mask_ops_equal_jax(jax_native):
+    """mask_iou and masks_connected: equal to the JAX package's library and
+    to the numpy versions (``analysis/masks.py``) on seeded mask pairs."""
+    assert tnative.available() == jax_native.available()
+    rng = np.random.RandomState(11)
+    for _ in range(40):
+        h, w = rng.randint(1, 30, 2)
+        a, b = (rng.rand(2, h, w) < rng.uniform(0.02, 0.5)).astype(np.uint8)
+        assert tnative.mask_iou(a, b) == jax_native.mask_iou(a, b) == tmasks.mask_iou(a, b)
+        assert tnative.masks_connected(a, b) == jax_native.masks_connected(a, b)
+        d = ndimage.binary_dilation(a.astype(bool), structure=np.ones((3, 3), bool))
+        assert tnative.masks_connected(a, b) == bool(np.any(d & b.astype(bool)))

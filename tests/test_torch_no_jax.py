@@ -1,4 +1,4 @@
-"""The machine with the card has no jax, flax, optax, orbax, cv2 or
+"""The machine with the card has no jax, flax, optax, orbax, cv2, networkx or
 matplotlib, and the port keeps its own copies of the host modules it needs.
 These tests hold the port (``caesar_mrcnn_tpu_torch`` and ``chip_smoke.py``)
 to running without those packages and without the JAX package
@@ -25,11 +25,14 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 
+# what the card's machine lacks, and the JAX package
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "networkx", "matplotlib", "caesar_mrcnn_tpu"}
+
 BLOCK_IMPORTS = """
 import sys
 
 class _Blocked:
-    names = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "matplotlib", "caesar_mrcnn_tpu"}
+    names = %r
 
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in self.names:
@@ -37,24 +40,35 @@ class _Blocked:
         return None
 
 sys.meta_path.insert(0, _Blocked())
-"""
+""" % (BLOCKED,)
 
 SLICE = """
-import importlib, pkgutil
+import importlib, json, os, pkgutil, tempfile
 import numpy as np
 import caesar_mrcnn_tpu_torch as pkg
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 import chip_smoke
+from caesar_mrcnn_tpu_torch.analysis.sfinder import SFinder
 from caesar_mrcnn_tpu_torch.config import detector_config, inference_config
 from caesar_mrcnn_tpu_torch.inference.detector import build_detector
+from caesar_mrcnn_tpu_torch.testing import pin_heads
 cfg = inference_config(detector_config(
     backbone="custom", image_min_dim=64, image_max_dim=64, num_classes=4,
-    pre_nms_limit=128, post_nms_rois_inference=32, detection_max_instances=8,
-    compute_dtype="float32"))
+    class_names=chip_smoke.CLASS_NAMES, pre_nms_limit=128, post_nms_rois_inference=32,
+    detection_max_instances=8, compute_dtype="float32", tile_xsize=64, tile_ysize=64))
 det = build_detector(cfg, seed=0, device="cpu")
 res = det.detect_tiles(np.random.RandomState(0).randint(0, 255, (1, 64, 64), np.uint8))
 assert len(res) == 1 and res[0]["masks"].shape[:2] == (64, 64)
+pin_heads(det.model)
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "mosaic.fits")
+    chip_smoke.write_mosaic(path, n=128)
+    sf = SFinder(det, cfg)
+    sf.outfile_json, sf.outfile_ds9 = os.path.join(tmp, "c.json"), os.path.join(tmp, "c.reg")
+    catalog = sf.run_tiled(path)
+    with open(sf.outfile_json) as f:
+        assert len(json.load(f)["objs"]) == len(catalog["objs"]) > 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in _Blocked.names)
 assert not loaded, loaded
 print("slice ok")
@@ -100,8 +114,9 @@ def _run(args, cwd, env_extra=None):
 
 def test_port_imports_and_runs_without_jax_cv2_matplotlib():
     """Every module of the port and chip_smoke.py import, and the detect
-    slice runs, with jax, flax, optax, orbax, cv2, matplotlib and the JAX
-    package ``caesar_mrcnn_tpu`` blocked."""
+    slice and ``SFinder.run_tiled`` over a 2 x 2-tile mosaic run (the
+    catalog written), with jax, flax, optax, orbax, cv2, networkx,
+    matplotlib and the JAX package ``caesar_mrcnn_tpu`` blocked."""
     proc = _run(["-c", BLOCK_IMPORTS + SLICE], cwd=REPO, env_extra={"PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "slice ok" in proc.stdout
@@ -109,8 +124,8 @@ def test_port_imports_and_runs_without_jax_cv2_matplotlib():
 
 def test_training_path_imports_and_steps_without_jax_cv2_matplotlib():
     """trainer, generator and targets import, and one train step runs, with
-    jax, flax, optax, orbax, cv2, matplotlib and ``caesar_mrcnn_tpu``
-    blocked."""
+    jax, flax, optax, orbax, cv2, networkx, matplotlib and
+    ``caesar_mrcnn_tpu`` blocked."""
     proc = _run(["-c", BLOCK_IMPORTS + TRAIN], cwd=REPO, env_extra={"PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "train ok" in proc.stdout
@@ -135,12 +150,14 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
-    """No module of the port imports ``caesar_mrcnn_tpu`` or a module under
-    it, by absolute import, and the re-export module ``host`` is gone."""
+    """No module of the port (nor chip_smoke.py) imports ``caesar_mrcnn_tpu``
+    or a module under it, or jax, flax, optax, orbax, cv2, networkx or
+    matplotlib, anywhere (inside functions too), by absolute import; and
+    the re-export module ``host`` is gone."""
     pkg = REPO / "caesar_mrcnn_tpu_torch"
     assert not (pkg / "host.py").exists()
     offending = []
-    for path in sorted(pkg.rglob("*.py")):
+    for path in sorted(pkg.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 mods = [a.name for a in node.names]
@@ -148,7 +165,7 @@ def test_port_sources_import_nothing_of_the_jax_package():
                 mods = [node.module]
             else:
                 continue
-            offending += [f"{path.relative_to(REPO)}: {m}" for m in mods if m.split(".")[0] == "caesar_mrcnn_tpu"]
+            offending += [f"{path.relative_to(REPO)}: {m}" for m in mods if m.split(".")[0] in BLOCKED]
     assert not offending, offending
 
 
