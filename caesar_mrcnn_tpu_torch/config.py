@@ -3,11 +3,12 @@
 The port's copy of ``caesar_mrcnn_tpu/config.py``: the same fields, defaults
 and presets, so that a configuration built from the same keywords equals the
 JAX package's field by field. The training knobs the port does not
-implement yet (``train_remat``, ``train_bn``, ``grad_accum_steps``,
-``opt_state_dtype`` other than ``"float32"``) raise where they are read,
-and so does ``tile_wire="raw"`` (read by ``analysis/sfinder.py``, which
-takes ``"u8"`` and ``"slow"``); ``quant_mode``, ``roi_gather_dtype`` and
-``rpn_fused_heads`` are not read by the port.
+implement yet (``train_remat``, ``train_bn``, ``opt_state_dtype`` other
+than ``"float32"``) raise where they are read, and so does
+``tile_wire="raw"`` (read by ``analysis/sfinder.py``, which takes ``"u8"``
+and ``"slow"``); ``quant_mode``, ``roi_gather_dtype`` and
+``rpn_fused_heads`` are not read by the port (its CLI refuses the values
+it cannot honour).
 
 A frozen-by-convention dataclass replacing the reference's class-attribute
 ``Config`` (reference: mrcnn/config.py:17-247). Derived values

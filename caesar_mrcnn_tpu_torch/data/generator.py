@@ -1,10 +1,12 @@
 """Training data pipeline without jax or cv2 (port of
-``caesar_mrcnn_tpu/data/generator.py:38-360``).
+``caesar_mrcnn_tpu/data/generator.py``).
 
 :func:`load_image_gt` loads, resizes, augments and masks one image;
 :class:`TrainingPipeline` is the infinite shuffled batch stream with RPN
 targets, GT subsampling to ``max_gt_instances`` and a skip-on-error budget
-of 5. Batches are numpy dicts with static shapes, in the wire of
+of 5, and its threaded prefetch (``TrainingPipeline.prefetch``), which
+copies each batch to the card on the producer's side in place of
+``jax.device_put``. Batches are numpy dicts with static shapes, in the wire of
 ``config.train_wire`` that ``train.trainer.mold_batch`` molds on the
 device. Datasets, augmentations, anchors and FITS reading are the port's
 copies of the JAX package's modules (``data.dataset``, ``data.augment``,
@@ -16,10 +18,13 @@ bilinear rounding where cv2's differs (``utils.image.minimize_mask``).
 from __future__ import annotations
 
 import logging
+import queue
+import threading
 from collections import OrderedDict
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..config import Config
 from ..models.meta import compose_image_meta
@@ -31,6 +36,44 @@ from .augment import augment_image_and_mask
 from .dataset import Dataset
 
 log = logging.getLogger(__name__)
+
+# how often a pipeline thread blocked on a queue looks at its stop event
+_POLL_S = 0.1
+
+
+def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """Host batch (numpy) -> device tensors: pinned and copied
+    asynchronously to a CUDA device. Tensors already there pass through."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+        if cuda and t.device.type == "cpu":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=cuda)
+    return out
+
+
+def _put(q: "queue.Queue", item, stop: threading.Event) -> bool:
+    """``q.put(item)`` unless ``stop`` is set first; True when put."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=_POLL_S)
+            return True
+        except queue.Full:
+            pass
+    return False
+
+
+def _get(q: "queue.Queue", stop: threading.Event):
+    """``q.get()``, or None once ``stop`` is set."""
+    while not stop.is_set():
+        try:
+            return q.get(timeout=_POLL_S)
+        except queue.Empty:
+            pass
+    return None
 
 
 def load_resized(dataset: Dataset, config: Config, image_id: int):
@@ -94,6 +137,8 @@ class TrainingPipeline:
     ``cache_bytes`` > 0 keeps the load + resize stage of up to that many
     bytes of images across epochs (one u8 plane for replicated-channel
     images, bit-packed masks; least recently used out first).
+    ``num_workers`` sample threads and a queue of ``max_queue`` batches
+    serve :meth:`prefetch`.
     """
 
     def __init__(
@@ -103,6 +148,8 @@ class TrainingPipeline:
         shuffle: bool = True,
         augmentation: bool = False,
         seed: Optional[int] = None,
+        num_workers: int = 0,
+        max_queue: int = 16,
         cache_bytes: int = 0,
     ):
         self.dataset = dataset
@@ -110,9 +157,12 @@ class TrainingPipeline:
         self.shuffle = shuffle
         self.augmentation = augmentation
         self.rng = np.random.RandomState(seed)
+        self.num_workers = num_workers
+        self.max_queue = max_queue
         self._cache_budget = int(cache_bytes)
         self._cache: "OrderedDict[int, Tuple[tuple, int]]" = OrderedDict()
         self._cache_used = 0
+        self._cache_lock = threading.Lock()  # the prefetch's sample threads share the cache
         self.anchors = generate_pyramid_anchors(
             config.rpn_anchor_scales,
             config.rpn_anchor_ratios,
@@ -168,23 +218,28 @@ class TrainingPipeline:
     def _load_resized(self, image_id: int):
         if self._cache_budget <= 0:
             return load_resized(self.dataset, self.config, image_id)
-        hit = self._cache.get(image_id)
+        with self._cache_lock:
+            hit = self._cache.get(image_id)
+            if hit is not None:
+                self._cache.move_to_end(image_id)
         if hit is not None:
-            self._cache.move_to_end(image_id)
             return self._cache_unpack(hit[0])
         loaded = load_resized(self.dataset, self.config, image_id)
         packed = self._cache_pack(loaded)
         if packed is not None:
-            self._cache[image_id] = packed
-            self._cache_used += packed[1]
-            while self._cache_used > self._cache_budget and len(self._cache) > 1:
-                _, (_, old_bytes) = self._cache.popitem(last=False)
-                self._cache_used -= old_bytes
+            with self._cache_lock:
+                if image_id not in self._cache:
+                    self._cache[image_id] = packed
+                    self._cache_used += packed[1]
+                    while self._cache_used > self._cache_budget and len(self._cache) > 1:
+                        _, (_, old_bytes) = self._cache.popitem(last=False)
+                        self._cache_used -= old_bytes
         return loaded
 
     # ------------------------------------------------------------- sample
-    def make_sample(self, image_id: int) -> Dict[str, np.ndarray]:
-        cfg, rng = self.config, self.rng
+    def make_sample(self, image_id: int, rng: Optional[np.random.RandomState] = None) -> Dict[str, np.ndarray]:
+        cfg = self.config
+        rng = rng if rng is not None else self.rng
         image, meta, class_ids, bbox, mask = load_image_gt(
             self.dataset, cfg, image_id,
             augmentation=self.augmentation,
@@ -280,3 +335,92 @@ class TrainingPipeline:
                     if error_count > 5:
                         raise
             yield {k: np.stack([s[k] for s in batch]) for k in batch[0]}
+
+    def prefetch(self, batch_size: Optional[int] = None, device=None) -> Iterator[Dict]:
+        """Batches made ahead by background threads, through a queue of
+        ``max_queue`` batches. With ``device`` (a CUDA device) each batch
+        is pinned and copied to it asynchronously on the producer's side
+        (:func:`batch_to_device`); without, batches stay numpy.
+
+        With ``num_workers <= 1`` one thread runs :meth:`batches`, in its
+        order. With more, an id feeder, ``num_workers`` sample threads (FITS
+        IO, the native zscale and numpy release the GIL), each with its own
+        ``RandomState`` seeded from the pipeline's, and an assembler build
+        them, so the order of the samples is not fixed. An exception in any
+        thread is raised here; closing the iterator stops the threads.
+        """
+        bs = batch_size or self.config.batch_size
+        q: "queue.Queue" = queue.Queue(maxsize=self.max_queue)
+        stop = threading.Event()
+        threads = []
+
+        def put_batches(batch_iter):
+            try:
+                for batch in batch_iter:
+                    if stop.is_set():
+                        return
+                    if device is not None:
+                        batch = batch_to_device(batch, device)
+                    if not _put(q, batch, stop):
+                        return
+            except Exception as e:  # noqa: BLE001 - handed to the consumer, which raises it
+                _put(q, e, stop)
+
+        if self.num_workers <= 1:
+            threads.append(threading.Thread(target=put_batches, args=(self.batches(bs),), daemon=True))
+        else:
+            id_q: "queue.Queue" = queue.Queue(maxsize=4 * bs)
+            sample_q: "queue.Queue" = queue.Queue(maxsize=4 * bs)
+            stream = self._id_stream()
+            seeds = self.rng.randint(2 ** 31, size=self.num_workers)
+
+            def id_feeder():
+                for image_id in stream:
+                    if not _put(id_q, image_id, stop):
+                        return
+
+            def sample_worker(seed):
+                rng = np.random.RandomState(seed)  # RandomState is not thread-safe
+                error_count = 0
+                while True:
+                    image_id = _get(id_q, stop)
+                    if image_id is None:
+                        return
+                    try:
+                        sample = self.make_sample(image_id, rng=rng)
+                        error_count = 0
+                    except Exception as e:  # noqa: BLE001 - a bad sample is skipped, up to the budget
+                        log.exception("Error processing image %s", self.dataset.image_reference(image_id))
+                        error_count += 1
+                        if error_count > 5:
+                            _put(sample_q, e, stop)
+                            return
+                        continue
+                    if not _put(sample_q, sample, stop):
+                        return
+
+            def assembled():
+                while True:
+                    samples = []
+                    while len(samples) < bs:
+                        item = _get(sample_q, stop)
+                        if item is None:
+                            return
+                        if isinstance(item, Exception):
+                            raise item
+                        samples.append(item)
+                    yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+            threads.append(threading.Thread(target=id_feeder, daemon=True))
+            threads += [threading.Thread(target=sample_worker, args=(int(sd),), daemon=True) for sd in seeds]
+            threads.append(threading.Thread(target=put_batches, args=(assembled(),), daemon=True))
+        for t in threads:
+            t.start()
+        try:
+            while True:
+                item = q.get()
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()

@@ -220,6 +220,8 @@ class Detector:
 
 def build_detector(
     config: Config,
+    weights_path: Optional[str] = None,
+    exclude: Optional[Sequence[str]] = None,
     seed: int = 0,
     device="cuda",
     weights: Optional[dict] = None,
@@ -227,14 +229,26 @@ def build_detector(
     """Model + weights on ``device``: the card unless the caller asks for
     another device (``device="cpu"`` runs the kernels' plain versions).
 
-    ``weights`` is a numpy flax variable tree (converted by
-    ``weights.flax_to_state_dict``); without it the weights are random,
-    made on the CPU from ``seed`` by flax's default scheme, so the same seed
-    gives the same weights on every device.
+    The weights start random, made on the CPU from ``seed`` by flax's
+    default scheme (so the same seed gives the same weights on every
+    device), or from ``weights``, a numpy flax variable tree (converted by
+    ``weights.flax_to_state_dict``). ``weights_path`` (a ``.pt`` checkpoint
+    or a Keras ``.h5``) is then restored over them by name, skipping the
+    flax paths that match an ``exclude`` regex
+    (``train.checkpoints.restore_weights``).
     """
+    from ..train.checkpoints import restore_weights
+
+    if config.num_devices > 1:
+        raise NotImplementedError(
+            f"num_devices={config.num_devices}: the port detects on one device; data parallelism "
+            "is ROADMAP item A13"
+        )
     model = MaskRCNN(config)
     if weights is not None:
         model.load_state_dict(W.flax_to_state_dict(weights))
     else:
         W.init_weights(model, torch.Generator().manual_seed(seed))
+    if weights_path:
+        restore_weights(model, weights_path, exclude=exclude)
     return Detector(config, model, device)

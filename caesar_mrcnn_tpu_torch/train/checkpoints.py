@@ -2,6 +2,9 @@
 ``caesar_mrcnn_tpu/train/checkpoints.py`` with ``torch.save`` files in
 place of orbax directories; reading orbax checkpoints is not ported).
 
+* :func:`restore_weights` is the entry point behind every ``--weights``
+  flag: a ``.pt`` file of this module, or a reference-format Keras ``.h5``
+  (``train/keras_import.py``);
 * epoch-stamped files ``mask_rcnn_<name>_NNNN.pt`` (weights: parameters
   and batch-norm statistics) and ``..._NNNN_state.pt`` (weights, optimizer
   state and step, for an exact resume) under a run directory;
@@ -9,8 +12,8 @@ place of orbax directories; reading orbax checkpoints is not ported).
 * :func:`partial_restore` loads stored tensors into a model by name,
   skipping names whose flax path matches an ``exclude`` regex and tensors
   whose shapes differ (retraining with another class or channel count).
-  The patterns are the JAX package's, on the same flax paths
-  (``backbone/conv1``, ``classifier_head``, ...).
+  The patterns are the JAX package's, searched in the same flax paths
+  (``params/backbone/conv1/kernel``, ``batch_stats/...``).
 """
 
 from __future__ import annotations
@@ -68,6 +71,25 @@ def load_train_state(path: str, model: torch.nn.Module, optimizer) -> int:
     return int(payload["step"])
 
 
+def restore_weights(
+    model: torch.nn.Module, path: str, exclude: Optional[Sequence[str]] = None
+) -> Tuple[List[str], List[str]]:
+    """Restore weights into ``model`` by name, in place, from a ``.pt``
+    checkpoint of :func:`save_checkpoint` or a reference-format Keras
+    ``.h5``/``.hdf5`` file; ``exclude`` as in :func:`partial_restore`.
+    Returns (loaded names, skipped names)."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory (an orbax checkpoint of the JAX package): the port reads .pt and "
+            ".h5 weights only; the orbax import is ROADMAP item A12"
+        )
+    if path.endswith((".h5", ".hdf5")):
+        from .keras_import import restore_from_keras_h5
+
+        return restore_from_keras_h5(model, path, exclude=exclude)
+    return partial_restore(model, load_checkpoint(path), exclude=exclude)
+
+
 def find_last(ckpt_dir: str) -> Optional[str]:
     """Newest weights checkpoint of a run directory."""
     if not os.path.isdir(ckpt_dir):
@@ -91,7 +113,8 @@ def partial_restore(
     exclude: Optional[Sequence[str]] = None,
 ) -> Tuple[List[str], List[str]]:
     """Copy stored tensors into ``model`` by name, in place. Skips names
-    whose flax path matches any ``exclude`` regex, names not stored, and
+    whose flax path (``collection/path``, as ``weights.flax_path`` gives
+    it) matches any ``exclude`` regex, names not stored, and
     tensors whose shapes differ. Returns (loaded names, skipped names)."""
     pats = [re.compile(p) for p in (exclude or [])]
     loaded: List[str] = []
@@ -99,7 +122,7 @@ def partial_restore(
     with torch.no_grad():
         for name, t in model.state_dict().items():
             value = stored.get(name)
-            if (any(p.search(flax_path(name)[1]) for p in pats) or value is None
+            if (any(p.search("/".join(flax_path(name))) for p in pats) or value is None
                     or tuple(value.shape) != tuple(t.shape)):
                 skipped.append(name)
                 continue

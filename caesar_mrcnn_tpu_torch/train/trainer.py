@@ -15,6 +15,13 @@ The optimizer follows the optax chain of the JAX trainer, step for step:
 Stage freezing (``layers`` other than ``all``) turns ``requires_grad`` off
 for the frozen parameters: optax's ``set_to_zero`` gives them no update, and
 they stay out of the global norm, as here.
+
+Gradient accumulation (``grad_accum_steps = k > 1``) is
+``optax.MultiSteps(every_k_schedule=k)`` around that chain: each call of
+the train step is one micro-step, whose gradient joins the running mean
+``acc + (g - acc) / (n + 1)``; on every k-th micro-step the chain runs on
+that mean and the mean restarts at 0. In between, the parameters and the
+optimizer's state do not move, and Adam's step count counts updates.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..data.generator import batch_to_device
 from ..models.losses import compute_losses
 from ..models.mask_rcnn import MaskRCNN, check_train_config, forward_train
 from ..utils.anchors import get_anchors
@@ -88,9 +96,13 @@ class Optimizer:
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
         self.decay_idx = [i for i, n in enumerate(self.names) if decay[n]]
-        self.count = 0
+        self.count = 0  # updates applied
+        self.accum_steps = int(config.grad_accum_steps or 1)
+        self.mini_step = 0  # micro-steps in the running mean
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
         self.state = {"mu": zeros(), "nu": zeros()} if self.kind == "adam" else {"trace": zeros()}
+        if self.accum_steps > 1:
+            self.state["acc"] = zeros()
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -98,9 +110,21 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
-        """One update from the parameters' ``.grad``, which keep the raw
-        gradients; nothing is read back to the host."""
+        """One micro-step from the parameters' ``.grad``, which keep the raw
+        gradients: an update when no accumulation is set or this micro-step
+        completes k of them; nothing is read back to the host."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.accum_steps > 1:
+            acc = self.state["acc"]
+            delta = torch._foreach_sub(grads, acc)
+            torch._foreach_div_(delta, float(self.mini_step + 1))
+            torch._foreach_add_(acc, delta)
+            self.mini_step += 1
+            if self.mini_step < self.accum_steps:
+                return
+            grads = [a.clone() for a in acc]
+            torch._foreach_zero_(acc)
+            self.mini_step = 0
         # optax's global_norm: sqrt of the sum of each leaf's sum of
         # squares. Not torch's norms: on the CPU they accumulate in plain f32
         # and were 5e-4 off on a 12.8M-element kernel; sum() is cascaded.
@@ -135,13 +159,17 @@ class Optimizer:
         return {
             "kind": self.kind,
             "count": self.count,
+            "mini_step": self.mini_step,
             "state": {k: dict(zip(self.names, v)) for k, v in self.state.items()},
         }
 
     def load_state_dict(self, sd: Dict) -> None:
         if sd["kind"] != self.kind:
             raise ValueError(f"optimizer state is {sd['kind']}, this optimizer is {self.kind}")
+        if set(sd["state"]) != set(self.state):
+            raise ValueError(f"optimizer state holds {sorted(sd['state'])}, this optimizer {sorted(self.state)}")
         self.count = int(sd["count"])
+        self.mini_step = int(sd.get("mini_step", 0))
         with torch.no_grad():
             for k, tensors in self.state.items():
                 for name, t in zip(self.names, tensors):
@@ -153,8 +181,6 @@ def make_optimizer(config: Config, model: MaskRCNN, layers: str = "all") -> Opti
     ``layers`` trains; turns ``requires_grad`` off for the others."""
     if getattr(config, "opt_state_dtype", "float32") not in ("float32", "", None):
         raise NotImplementedError("opt_state_dtype other than float32 is not ported yet (ROADMAP A11)")
-    if getattr(config, "grad_accum_steps", 1) > 1:
-        raise NotImplementedError("grad_accum_steps > 1 is not ported yet (ROADMAP A11)")
     train = trainable_mask(model, layers)
     named = []
     for name, p in model.named_parameters():
@@ -173,17 +199,6 @@ def _unpackbits(packed: torch.Tensor, count: int) -> torch.Tensor:
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
     bits = (packed[..., None] >> shifts) & 1
     return bits.reshape(packed.shape[:-1] + (-1,))[..., :count]
-
-
-def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """Host batch -> device tensors (pinned, asynchronous on CUDA)."""
-    device = torch.device(device)
-    cuda = device.type == "cuda"
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = (t.pin_memory() if cuda else t).to(device, non_blocking=cuda)
-    return out
 
 
 def mold_batch(batch: Dict[str, torch.Tensor], cfg: Config, num_anchors: Optional[int] = None) -> Dict:
@@ -292,16 +307,17 @@ def make_eval_step(model: MaskRCNN, anchors: np.ndarray,
 
 def train_loop(
     train_step: Callable,
-    batches: Iterator[Dict[str, np.ndarray]],
+    batches: Iterator[Dict],
     steps: int,
     device,
     generator: Optional[torch.Generator] = None,
     log_every: int = 50,
     callback: Optional[Callable[[int, Dict[str, float]], None]] = None,
 ) -> Dict[str, float]:
-    """Run ``steps`` optimizer steps on host batches; returns the last
-    logged losses. Losses are read back to the host only every
-    ``log_every`` steps and at the end."""
+    """Run ``steps`` train steps (micro-steps under gradient accumulation)
+    on host batches or batches already on ``device`` (``prefetch``);
+    returns the last logged losses. Losses are read back to the host only
+    every ``log_every`` steps and at the end."""
     history: Dict[str, float] = {}
     t_mark, i_mark = time.time(), 0
     for i in range(steps):

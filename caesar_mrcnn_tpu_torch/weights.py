@@ -47,7 +47,8 @@ def _walk(params: Mapping, stats: Mapping, prefix: str, out: Dict[str, np.ndarra
             continue
         key = prefix + _BOTTLENECK_BN.get(name, name)
         if "BatchNorm_0" in p:  # FrozenableBatchNorm wrapper
-            for leaf, value in {**p["BatchNorm_0"], **stats[name]["BatchNorm_0"]}.items():
+            bn_stats = stats.get(name, {}).get("BatchNorm_0", {})  # absent from a partial tree
+            for leaf, value in {**p["BatchNorm_0"], **bn_stats}.items():
                 out[f"{key}.{leaf}"] = np.asarray(value)
         elif "kernel" in p:
             k = np.asarray(p["kernel"])

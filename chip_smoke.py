@@ -45,10 +45,19 @@ Phases, one line each:
    for ``caesar_mrcnn_tpu_torch/kernel_bench.py``;
 9. train parity: one f32 SGD step of ResNet-101 at batch 2, 128^2, on the
    card and on the CPU from the same weights, batch and priorities: losses
-   and gradients.
+   and gradients;
+10. cli: the system's own entry point, ``caesar_mrcnn_tpu_torch.cli.run.main``,
+   in-process on the card (its default ``--device cuda``), at the CLI's
+   default widths (ResNet-101, bf16, 6000 pre-NMS, 2000/1000 post-NMS, 512
+   ROIs, 300 GT): ``train`` (10 Adam steps at 256^2, batch 8, on the 16
+   seeded FITS images, 2 validation steps, a ``.pt`` checkpoint), a resume
+   from it (4 micro-steps, ``--grad_accum_steps 2``), ``test`` on the same
+   images (``map_summary.json`` read back) and tiled ``detect`` on the
+   seeded 2048^2 mosaic (catalog JSON and DS9 file read back): each mode's
+   wall time and launches; the train step's time and first and last losses.
 
 Then the card's name and power limit, one JSON line with the kernels'
-record (launches on the main paths: detect, catalog and train; error,
+record (launches on the main paths: detect, catalog, train and cli; error,
 kernel, plain and bound times summed over the cases; ``library_ms`` null,
 with the reason beside it), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -909,6 +918,149 @@ def check_train_parity(ds, card_name: str) -> None:
         raise AssertionError(f"train parity beyond its bounds: losses {gl} vs {cl}; gradients {worst}")
 
 
+# ---------------------------------------------------------------------- cli
+
+
+class TimedSteps:
+    """``trainer.make_train_step`` for the CLI's run, each step's losses
+    kept and its device time taken by CUDA events around the call."""
+
+    def __init__(self, make_train_step):
+        self.make_train_step = make_train_step
+        self.events, self.losses = [], []
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        step = self.make_train_step(*args, **kwargs)
+
+        def timed(batch, *a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses = step(batch, *a, **kw)
+            end.record()
+            self.events.append((start, end))
+            self.losses.append(losses)
+            return losses
+
+        return timed
+
+    def summary(self):
+        """(median step ms of the steps after the first two, first and last
+        total loss, every loss finite)."""
+        import torch
+
+        torch.cuda.synchronize()
+        ms = statistics.median(s.elapsed_time(e) for s, e in self.events[2:])
+        totals = [float(l["total_loss"]) for l in self.losses]
+        finite = all(bool(torch.isfinite(v)) for l in self.losses for v in l.values())
+        return ms, totals[0], totals[-1], finite
+
+
+def run_cli(argv, counters) -> tuple:
+    """``cli.run.main(argv)``, which must return 0: (wall seconds, launches)."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch.cli import run as cli
+
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    t = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    return wall, {k.__name__: k.launches for k in counters}
+
+
+def check_cli(card_name: str) -> dict:
+    """The port's CLI on the card, as a user runs it: train, a resume with
+    gradient accumulation, test and tiled detect, each through
+    ``cli.run.main`` with the CLI's defaults for everything not named."""
+    from caesar_mrcnn_tpu_torch.config import detector_config
+    from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
+    from caesar_mrcnn_tpu_torch.ops.roi_align import crop_and_resize, roi_align, roi_align_backward
+    from caesar_mrcnn_tpu_torch.train import trainer as T
+    from caesar_mrcnn_tpu_torch.train.checkpoints import checkpoint_name
+
+    counters = (nms_padded, roi_align, roi_align_backward, crop_and_resize)
+    name = detector_config().name  # the CLI's checkpoints are mask_rcnn_<name>_NNNN.pt
+    cwd = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # SFinder writes its DS9 file to the working directory
+        make_train_step = T.make_train_step
+        try:
+            datalist = os.path.join(tmp, "train.list")
+            with open(datalist, "w") as f:
+                f.write("\n".join(write_train_dataset(tmp)) + "\n")
+            mosaic = os.path.join(tmp, "mosaic.fits")
+            write_mosaic(mosaic)
+            logs = os.path.join(tmp, "logs")
+            data = ["--dataloader", "datalist_json", "--imgsize", "256", "--nimg_per_gpu", "8", "--logs", logs]
+            train = ["train", "--datalist_train", datalist, "--datalist_val", datalist, "--nepochs", "1",
+                     "--nvalidation_steps", "2", "--no_augmentation"] + data
+            runs = {}
+            for mode, argv, steps in (("train", train + ["--epoch_length", "10"], 10),
+                                      ("resume", train + ["--weights", os.path.join(logs, checkpoint_name(name, 1) + ".pt"),
+                                                          "--epoch_length", "4", "--grad_accum_steps", "2"], 4)):
+                T.make_train_step = timed = TimedSteps(make_train_step)
+                wall, launches = run_cli(argv, counters)
+                T.make_train_step = make_train_step
+                ms, first, last, finite = timed.summary()
+                # per micro-step 1 NMS, 2 ROIAlign forward and backward, 1 crop;
+                # per validation step the same without the backward
+                expected = {"nms_padded": steps + 2, "roi_align": 2 * (steps + 2),
+                            "roi_align_backward": 2 * steps, "crop_and_resize": steps + 2}
+                if launches != expected:
+                    raise AssertionError(f"cli {mode} launches {launches}, expected {expected}")
+                if not finite:
+                    raise AssertionError(f"cli {mode}: non-finite losses")
+                runs[mode] = (wall, launches)
+                print(f"cli: {mode} ({steps} micro-steps, 2 validation steps, ResNet-101 256^2 batch 8 bf16, "
+                      f"{'grad_accum_steps 2' if mode == 'resume' else 'Adam'}): {wall:.2f} s wall; step "
+                      f"{ms:.2f} ms (median of steps 3-{steps}, CUDA events); total_loss first {first:.4f}, last "
+                      f"{last:.4f}; launches {launches} [{card_name}]")
+            ckpt = os.path.join(logs, checkpoint_name(name, 2) + ".pt")
+            if not os.path.isfile(ckpt):
+                raise AssertionError(f"the resume wrote no {os.path.basename(ckpt)}")
+            scores = ["--scoreThr", "0.0", "--scoreThrPerClass", "none", "--weights", ckpt]
+            wall, launches = run_cli(["test", "--datalist", datalist] + scores + data, counters)
+            with open(os.path.join(logs, "map_summary.json")) as f:
+                summary = json.load(f)
+            if launches != {"nms_padded": 4, "roi_align": 4, "roi_align_backward": 0, "crop_and_resize": 0}:
+                raise AssertionError(f"cli test launches {launches}, expected 2 NMS and 2 ROIAlign per batch x 2")
+            runs["test"] = (wall, launches)
+            print(f"cli: test on the 16 images, batch 8: {wall:.2f} s wall; map_summary.json "
+                  f"{json.dumps(summary)[:300]}; launches {launches} [{card_name}]")
+            catalog_path = os.path.join(tmp, "catalog.json")
+            wall, launches = run_cli(["detect", "--image", mosaic, "--split_img_in_tiles", "--tile_xsize", "512",
+                                      "--tile_ysize", "512", "--nimg_per_gpu", "8", "--detect_outfile_json",
+                                      catalog_path] + scores, counters)
+            if launches != {"nms_padded": 4, "roi_align": 4, "roi_align_backward": 0, "crop_and_resize": 0}:
+                raise AssertionError(f"cli detect launches {launches}, expected 2 NMS and 2 ROIAlign per batch x 2")
+            with open(catalog_path) as f:
+                catalog = json.load(f)
+            with open(os.path.join(tmp, "ds9_mosaic.reg")) as f:
+                regions = f.read()
+            if catalog["objs"]:
+                check_catalog_files(catalog, catalog, regions, 2048, 2048)
+            runs["detect"] = (wall, launches)
+            print(f"cli: detect on the 2048^2 mosaic, 16 tiles of 512^2, batch 8: {wall:.2f} s wall; "
+                  f"{len(catalog['objs'])} sources; catalog JSON and DS9 file read back; launches {launches} "
+                  f"[{card_name}]")
+        finally:
+            T.make_train_step = make_train_step
+            os.chdir(cwd)
+    for name, k in (("nms", "nms_padded"), ("roi_align", "roi_align"), ("roi_align_backward", "roi_align_backward"),
+                    ("crop_and_resize", "crop_and_resize")):
+        out[name] = sum(launches[k] for _, launches in runs.values())
+    print(f"cli: {sum(w for w, _ in runs.values()):.2f} s over the four calls [{card_name}]")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -953,11 +1105,15 @@ def main() -> None:
         check_train_step_boxes(captured, {"nms": nms, "roi_align": roi, "roi_align_backward": roi_bwd,
                                           "crop_and_resize": crop}, card_name)
         check_train_parity(ds, card_name)
-    print(f"launches: detect path {detect}, catalog path {catalog}, train path {train}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cli = check_cli(card_name)
+    print(f"cli: phase {time.perf_counter() - t:.2f} s [{card_name}]")
+    print(f"launches: detect path {detect}, catalog path {catalog}, train path {train}, cli {cli}")
 
     def record(name, source, replaces, rec):
         return {"name": name, "route": "cuda", "source": f"caesar_mrcnn_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": detect.get(name, 0) + catalog.get(name, 0) + train[name],
+                "replaces": replaces, "launches": detect.get(name, 0) + catalog.get(name, 0) + train[name] + cli[name],
                 "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": max(rec["by"], key=rec["by"].get), "library_ms": None,
                 "library": NO_LIBRARY[name]}

@@ -1,9 +1,10 @@
 """The port's copies of the JAX package's host modules against their
 originals, on the CPU, on seeded inputs: the configuration and its presets,
 the anchors, FITS writing and reading, zscale, tiling, the augmentations,
-the debug ROIs, the dataset, the native host library, and the host layer's
-pieces: the graph and statistics helpers, the evaluation metrics, the DS9
-regions and the ground-truth matching.
+the debug ROIs, the dataset, the native host library, the host layer's
+pieces (the graph and statistics helpers, the evaluation metrics, the DS9
+regions and the ground-truth matching), and the legacy trainer CLI's
+translation onto the main CLI.
 
 Every comparison is exact: the copies run the same numpy code, and the two
 native libraries are built from the same C++ with the same flags. The JAX
@@ -27,6 +28,7 @@ from caesar_mrcnn_tpu import config as jconfig
 from caesar_mrcnn_tpu import native as jnative
 from caesar_mrcnn_tpu.analysis import gt_eval as jgt_eval
 from caesar_mrcnn_tpu.analysis import regions as jregions
+from caesar_mrcnn_tpu.cli import train_all as jtrain_all
 from caesar_mrcnn_tpu.data import augment as jaugment
 from caesar_mrcnn_tpu.data import dataset as jdataset
 from caesar_mrcnn_tpu.evalmetrics import ap as jap
@@ -45,6 +47,7 @@ from caesar_mrcnn_tpu_torch import native as tnative
 from caesar_mrcnn_tpu_torch.analysis import gt_eval as tgt_eval
 from caesar_mrcnn_tpu_torch.analysis import masks as tmasks
 from caesar_mrcnn_tpu_torch.analysis import regions as tregions
+from caesar_mrcnn_tpu_torch.cli import train_all as ttrain_all
 from caesar_mrcnn_tpu_torch.data import augment as taugment
 from caesar_mrcnn_tpu_torch.data import dataset as tdataset
 from caesar_mrcnn_tpu_torch.evalmetrics import ap as tap
@@ -397,3 +400,32 @@ def test_native_mask_ops_equal_jax(jax_native):
         assert tnative.masks_connected(a, b) == jax_native.masks_connected(a, b)
         d = ndimage.binary_dilation(a.astype(bool), structure=np.ones((3, 3), bool))
         assert tnative.masks_connected(a, b) == bool(np.any(d & b.astype(bool)))
+
+
+TRAIN_ALL_ARGVS = [
+    ["train", "--dataset", "list.dat"],
+    ["train", "--dataset", "list.dat", "--weights", "mrcnn.h5", "--weighttype", "coco", "--nepochs", "3",
+     "--epoch_length", "7", "--nvalidation_steps", "2", "--ngpu", "1", "--nimg_per_gpu", "4", "--nthreads", "3"],
+    ["train", "--dataset", "list.dat", "--weights", "w.pt", "--weighttype", "imagenet", "--logs", "out/"],
+    ["test", "--dataset", "list.dat", "--nimg_test", "5", "--scoreThr_test", "0.5", "--iouThr_test", "0.3"],
+    ["test", "--dataset", "list.dat", "--weights", "w.pt", "--weighttype", "COCO"],
+]
+
+
+@pytest.mark.parametrize("argv", TRAIN_ALL_ARGVS, ids=lambda a: " ".join(a[:1] + a[3:5]))
+def test_train_all_translate_equals_jax(argv):
+    """The legacy flags parse to the same values and translate to the same
+    main-CLI argv."""
+    got, ref = ttrain_all.parse_args(argv), jtrain_all.parse_args(argv)
+    assert vars(got) == vars(ref)
+    assert ttrain_all.translate(got) == jtrain_all.translate(ref)
+
+
+@pytest.mark.parametrize("argv", [["detect", "--dataset", "list.dat"], ["train"]])
+def test_train_all_translate_refuses_as_jax(argv):
+    errors = []
+    for mod in (ttrain_all, jtrain_all):
+        with pytest.raises(ValueError) as err:
+            mod.translate(mod.parse_args(argv))
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]

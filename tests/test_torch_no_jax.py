@@ -1,9 +1,10 @@
 """The machine with the card has no jax, flax, optax, orbax, cv2, networkx or
-matplotlib, and the port keeps its own copies of the host modules it needs.
-These tests hold the port (``caesar_mrcnn_tpu_torch`` and ``chip_smoke.py``)
-to running without those packages and without the JAX package
-``caesar_mrcnn_tpu``, and check that nothing falls back to the CPU or to a
-plain version where CUDA was asked for.
+matplotlib, and may lack h5py; the port keeps its own copies of the host
+modules it needs. These tests hold the port (``caesar_mrcnn_tpu_torch`` and
+``chip_smoke.py``) to running without those packages and without the JAX
+package ``caesar_mrcnn_tpu`` (h5py is imported only inside the functions
+that read or write a ``.h5`` file), and check that nothing falls back to
+the CPU or to a plain version where CUDA was asked for.
 """
 
 import ast
@@ -25,8 +26,10 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 
-# what the card's machine lacks, and the JAX package
+# what the card's machine lacks, and the JAX package: imported nowhere in the port
 BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "networkx", "matplotlib", "caesar_mrcnn_tpu"}
+# and what the subprocesses also run without
+BLOCKED_IN_SUBPROCESS = BLOCKED | {"h5py"}
 
 BLOCK_IMPORTS = """
 import sys
@@ -40,7 +43,7 @@ class _Blocked:
         return None
 
 sys.meta_path.insert(0, _Blocked())
-""" % (BLOCKED,)
+""" % (BLOCKED_IN_SUBPROCESS,)
 
 SLICE = """
 import importlib, json, os, pkgutil, tempfile
@@ -104,6 +107,35 @@ print("train ok")
 """
 
 
+CLI = """
+import json, os, tempfile
+import chip_smoke
+from caesar_mrcnn_tpu_torch.cli import run as cli
+tiny = ["--imgsize", "64", "--backbone", "custom", "--rpn_anchor_scales", "8,16,32,64,128",
+        "--rpn_train_anchors_per_image", "32", "--train_rois_per_image", "16", "--max_gt_instances", "4",
+        "--pre_nms_limit", "128", "--post_nms_rois_training", "32", "--post_nms_rois_inference", "32",
+        "--detection_max_instances", "8", "--nimg_per_gpu", "2", "--device", "cpu"]
+with tempfile.TemporaryDirectory() as tmp:
+    os.chdir(tmp)
+    listfile = os.path.join(tmp, "list")
+    with open(listfile, "w") as f:
+        f.write("\\n".join(chip_smoke.write_train_dataset(tmp, n_images=2, size=64, objects=2)))
+    assert cli.main(["train", "--dataloader", "datalist_json", "--datalist_train", listfile, "--datalist_val",
+                     listfile, "--epoch_length", "1", "--nvalidation_steps", "0", "--logs", "logs"] + tiny) == 0
+    weights = os.path.join(tmp, "logs", "mask_rcnn_rg-dataset_0001.pt")
+    chip_smoke.write_mosaic(os.path.join(tmp, "mosaic.fits"), n=128)
+    assert cli.main(["detect", "--image", "mosaic.fits", "--split_img_in_tiles", "--tile_xsize", "64",
+                     "--tile_ysize", "64", "--weights", weights, "--scoreThr", "0.0", "--detect_outfile_json",
+                     "catalog.json"] + tiny) == 0
+    with open("catalog.json") as f:
+        assert "objs" in json.load(f)
+    assert os.path.isfile("ds9_mosaic.reg")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in _Blocked.names)
+assert not loaded, loaded
+print("cli ok")
+"""
+
+
 def _run(args, cwd, env_extra=None):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(env_extra or {})
@@ -116,7 +148,7 @@ def test_port_imports_and_runs_without_jax_cv2_matplotlib():
     """Every module of the port and chip_smoke.py import, and the detect
     slice and ``SFinder.run_tiled`` over a 2 x 2-tile mosaic run (the
     catalog written), with jax, flax, optax, orbax, cv2, networkx,
-    matplotlib and the JAX package ``caesar_mrcnn_tpu`` blocked."""
+    matplotlib, h5py and the JAX package ``caesar_mrcnn_tpu`` blocked."""
     proc = _run(["-c", BLOCK_IMPORTS + SLICE], cwd=REPO, env_extra={"PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "slice ok" in proc.stdout
@@ -124,11 +156,21 @@ def test_port_imports_and_runs_without_jax_cv2_matplotlib():
 
 def test_training_path_imports_and_steps_without_jax_cv2_matplotlib():
     """trainer, generator and targets import, and one train step runs, with
-    jax, flax, optax, orbax, cv2, networkx, matplotlib and
+    jax, flax, optax, orbax, cv2, networkx, matplotlib, h5py and
     ``caesar_mrcnn_tpu`` blocked."""
     proc = _run(["-c", BLOCK_IMPORTS + TRAIN], cwd=REPO, env_extra={"PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "train ok" in proc.stdout
+
+
+def test_cli_trains_and_detects_without_jax_cv2_matplotlib_h5py():
+    """The port's CLI trains one step (a ``.pt`` checkpoint) and detects on
+    a 2 x 2-tile mosaic from it (the catalog and DS9 file written) on the
+    CPU, with jax, flax, optax, orbax, cv2, networkx, matplotlib, h5py and
+    ``caesar_mrcnn_tpu`` blocked."""
+    proc = _run(["-c", BLOCK_IMPORTS + CLI], cwd=REPO, env_extra={"PYTHONPATH": str(REPO)})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "cli ok" in proc.stdout
 
 
 def test_chip_smoke_imports_only_the_port():

@@ -350,7 +350,7 @@ def test_optimizer_step_leaves_the_raw_gradients():
 
 
 @pytest.mark.parametrize("option", [dict(train_remat="backbone"), dict(train_bn=True),
-                                    dict(grad_accum_steps=2), dict(opt_state_dtype="bfloat16")])
+                                    dict(train_remat="all"), dict(opt_state_dtype="bfloat16")])
 def test_unported_training_options_raise(option):
     cfg = tiny_config(**option)
     model = MaskRCNN(cfg)
