@@ -14,10 +14,8 @@ CPU.
 Where it differs from the JAX CLI:
 
 * what the port does not have yet is refused before any work is done,
-  naming its ROADMAP item: ``export`` (A15), an int8 detect graph
-  (``--quant_mode int8``, or ``--serving`` without ``--quant_mode none``;
-  A14/B4), ``--ngpu`` above 1 (A13), and ``--roi_gather_dtype`` other than
-  ``none`` (not to be ported);
+  naming its ROADMAP item: ``export`` (A15), ``--ngpu`` above 1 (A13), and
+  ``--roi_gather_dtype`` other than ``none`` (not to be ported);
 * ``train --serving`` is refused (the serving preset is for test and
   detect; the JAX CLI applies it to training);
 * an unknown class name or a threshold that is not a number in
@@ -107,8 +105,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--rpn_anchor_ratios", type=str, default="0.5,1,2")
     parser.add_argument(
         "--serving", action="store_true", default=False,
-        help="serving preset for test/detect: int8 detect graph (not ported: ROADMAP A14/B4, so pass "
-        "--quant_mode none with it) + proposal budget pre_nms 3000 / post_nms_inference 512. Explicit "
+        help="serving preset for test/detect: int8 detect graph (calibrated on the first batch) + "
+        "proposal budget pre_nms 3000 / post_nms_inference 512. Explicit "
         "--quant_mode/--pre_nms_limit/--post_nms_rois_inference flags override the preset.",
     )
     parser.add_argument("--pre_nms_limit", type=int, default=None)
@@ -131,8 +129,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="inference ROIAlign gather buffer dtype of the JAX package; the port "
                         "takes only 'none'")
     parser.add_argument("--quant_mode", type=str, default=None, choices=["none", "int8"],
-                        help="post-training quantization of the detect graph ('int8' is not ported: "
-                        "ROADMAP A14/B4)")
+                        help="post-training quantization of the detect graph: 'int8' calibrates "
+                        "activation scales on the first batch and runs int8 convolutions")
     parser.add_argument("--train_wire", type=str, default="compact", choices=["compact", "dense"],
                         help="host->device training batch format: 'compact' ships sparse RPN targets, "
                         "bit-packed masks and mono images; 'dense' ships device-shaped arrays")
@@ -229,11 +227,6 @@ def refuse_unported(args) -> None:
     does not yet, naming its ROADMAP item."""
     if args.command == "export":
         raise NotImplementedError("'export' (the serving artifact) is not ported yet: ROADMAP A15")
-    if _quant_mode(args) == "int8":
-        raise NotImplementedError(
-            "the int8 detect graph is not ported yet (ROADMAP A14/B4); --serving implies it unless "
-            "--quant_mode none is given"
-        )
     if args.ngpu > 1:
         raise NotImplementedError(f"--ngpu {args.ngpu}: the port runs on one device; data parallelism is ROADMAP A13")
     if args.roi_gather_dtype != "none":

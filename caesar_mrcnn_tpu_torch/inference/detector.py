@@ -9,10 +9,18 @@ asynchronously, enqueues the whole step, starts the device->host copies of
 the results into pinned buffers and records an event; ``collect`` waits on
 that event and unmolds. Nothing in between reads a value back to the host,
 so a caller can keep several batches in flight.
+
+With ``config.quant_mode="int8"`` the step runs the int8 graph
+(``models/heads_int8.py``): the first batch of :meth:`Detector.detect` or
+:meth:`Detector.dispatch_tiles` calibrates it (or :meth:`Detector.quantize`
+does, on given images), and any change of the model's weights after that
+(``load_state_dict``, ``restore_weights``, an edit in place) drops it, so
+the next batch calibrates again.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -33,6 +41,7 @@ class Detector:
     def __init__(self, config: Config, model: MaskRCNN, device):
         if config.num_devices != 1:
             raise ValueError("the port runs on one device (num_devices=1)")
+        check_inference_config(config)
         self.config = config
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
@@ -41,6 +50,9 @@ class Detector:
         self._bbox_std = torch.tensor(config.bbox_std_dev, dtype=torch.float32, device=dev)
         self._mean = torch.tensor(config.mean_pixel, dtype=torch.float32, device=dev)
         self._consts = {}  # (h, w, c) -> device anchors, tile metas
+        self.qtree = None  # the int8 graph's numpy tree, once quantized
+        self._stages = None  # the int8 graph (heads_int8.DetectStages)
+        self._stages_version = None  # the weights' version it was quantized from
 
     def _constants(self, shape):
         """Device-resident anchors and full-frame tile metas per input shape."""
@@ -57,10 +69,51 @@ class Detector:
         return self._consts[key]
 
     @torch.inference_mode()
-    def _step(self, molded: torch.Tensor, metas: torch.Tensor, anchors: torch.Tensor):
-        return forward_inference(
-            self.model, molded, metas, anchors, self._rpn_std, self._bbox_std
-        )
+    def _step(self, molded: torch.Tensor, metas: torch.Tensor, anchors: torch.Tensor, n_in: int):
+        """The detect graph on a device batch; in int8 mode, calibrated
+        first on its ``n_in`` real images when there is no int8 graph for
+        the current weights."""
+        if self._stages is not None and self._stages_version != self._weights_version():
+            self._stages = self.qtree = None  # new weights: the int8 graph is stale
+        if self._stages is None and self.config.quant_mode == "int8":
+            self._quantize_molded(molded[:n_in], metas[:n_in], anchors)
+        graph = self.model if self._stages is None else self._stages
+        return forward_inference(graph, molded, metas, anchors, self._rpn_std, self._bbox_std)
+
+    # ------------------------------------------------------- quantization
+    def _weights_version(self) -> int:
+        """Changes whenever a parameter or buffer of the model is written in
+        place (``load_state_dict`` copies into them)."""
+        return sum(t._version for t in itertools.chain(self.model.parameters(), self.model.buffers()))
+
+    def quantize(self, calib_images: Sequence[np.ndarray]) -> None:
+        """Post-training int8 quantization of the detect graph: frozen batch
+        norm folded, per-tensor activation scales calibrated on
+        ``calib_images`` (host images, molded as :meth:`detect` molds them;
+        the folded f32 graph runs with TF32 switched off for the pass and
+        restored after, ``backbone_int8.exact_f32``), weights quantized per
+        output channel. The step then runs the int8 graph, until the
+        weights change."""
+        molded, metas, _ = self.mold_inputs(calib_images)
+        anchors, _ = self._constants(molded.shape[1:])
+        with torch.inference_mode():
+            self._quantize_molded(torch.from_numpy(molded).to(self.device),
+                                  torch.from_numpy(metas).to(self.device), anchors)
+
+    def _quantize_molded(self, molded: torch.Tensor, metas: torch.Tensor, anchors: torch.Tensor) -> None:
+        from ..models import heads_int8 as Q
+
+        self.use_qtree(Q.build_detect_qtree(self.model, molded, metas, anchors))
+
+    def use_qtree(self, qtree: Dict) -> None:
+        """Run the int8 graph of ``qtree`` (a numpy quantized tree in the JAX
+        package's layout: ``heads_int8.build_detect_qtree``'s, or one from
+        another detector with the same weights)."""
+        from ..models import heads_int8 as Q
+
+        self._stages = Q.int8_stages(self.model, qtree)
+        self.qtree = qtree
+        self._stages_version = self._weights_version()
 
     # ----------------------------------------------------------- molding
     def mold_inputs(self, images: Sequence[np.ndarray]):
@@ -144,7 +197,7 @@ class Detector:
         x = raw.float()
         if x.dim() == 3:
             x = x[..., None].expand(-1, -1, -1, c)
-        out = self._step(x - self._mean, metas, anchors)
+        out = self._step(x - self._mean, metas, anchors, n_in)
         fetched = [self._to_host(t, cuda) for t in (out.detections, out.masks)]
         event = None
         if cuda:
@@ -205,6 +258,7 @@ class Detector:
             torch.from_numpy(molded).to(self.device),
             torch.from_numpy(metas).to(self.device),
             anchors,
+            n_in,
         )
         detections = out.detections.cpu().numpy()
         masks = out.masks.cpu().numpy()
@@ -216,6 +270,20 @@ class Detector:
             results.append({"rois": rois, "class_ids": class_ids, "scores": scores,
                             "masks": full_masks})
         return results
+
+
+def check_inference_config(config: Config) -> None:
+    """Refuse the inference options the port does not run: an unknown
+    ``quant_mode`` (it takes ``"none"`` and ``"int8"``) and a
+    ``roi_gather_dtype`` other than ``"none"`` (the JAX package's reduced
+    precision ROIAlign gather is on the ROADMAP's "Not to port" list)."""
+    if config.quant_mode not in ("none", "int8"):
+        raise ValueError(f"quant_mode={config.quant_mode!r}: the port takes 'none' or 'int8'")
+    if config.roi_gather_dtype != "none":
+        raise NotImplementedError(
+            f"roi_gather_dtype={config.roi_gather_dtype!r}: the reduced-precision ROIAlign gather is "
+            "'Not to port' (ROADMAP); the port takes only 'none'"
+        )
 
 
 def build_detector(

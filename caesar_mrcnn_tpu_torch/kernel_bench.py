@@ -40,12 +40,13 @@ import statistics
 import subprocess
 import sys
 from pathlib import Path
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_INT8_PER_S = 1979e12  # dense int8 tensor-core operations
 # f32 operations of one IoU test (4 min/max, 2 sub, 2 max, 1 mul for the
 # intersection; 2 x (2 sub, 1 mul) for the areas; add, sub; div; compare)
 NMS_OPS_PER_PAIR = 20
@@ -110,7 +111,7 @@ def device_split(fn: Callable, reps: int) -> Dict[str, Tuple[float, float]]:
 # The port's kernels (``csrc/*.cu``); every other device op of a call is
 # its wrapper's (casts, zeros, the sort).
 OWN_KERNELS = ("nms_mask_kernel", "nms_sweep_kernel", "roi_align_kernel", "roi_align_backward_kernel",
-               "crop_and_resize_kernel")
+               "crop_and_resize_kernel", "conv_int8_kernel", "quantize_int8_kernel")
 
 
 def own_kernels(split: Dict[str, Tuple[float, float]]) -> Tuple[float, float, float]:
@@ -313,6 +314,115 @@ def crop_and_resize_bound(mask_shape: Sequence[int], boxes, assign, crop_size: T
     samples = b * r * crop_size[0] * crop_size[1]
     nbytes = crop_sectors(mask_shape, boxes, assign, crop_size) * 32 + b * r * (16 + assign.element_size())
     return _bound(nbytes + samples * 4, samples * 12)
+
+
+# ------------------------------------------------------- the int8 serving graph
+
+
+class ConvSite(NamedTuple):
+    """One int8 convolution of the detect graph: its site, NHWC input
+    [batch, h, w, cin], ``cout`` filters of ``k`` x ``k`` at ``stride``,
+    XLA's ``pads`` ((top, bottom), (left, right)), and whether a ReLU ends
+    it."""
+
+    name: str
+    batch: int
+    h: int
+    w: int
+    cin: int
+    cout: int
+    k: int
+    stride: int
+    pads: tuple
+    relu: bool = False
+
+    @property
+    def out_hw(self) -> Tuple[int, int]:
+        (pt, pb), (pl, pr) = self.pads
+        return (self.h + pt + pb - self.k) // self.stride + 1, (self.w + pl + pr - self.k) // self.stride + 1
+
+    @property
+    def read_hw(self) -> Tuple[int, int]:
+        """The input rows and columns some tap reads (a 1x1 stride-2 conv
+        reads every other one)."""
+        def touched(n_in, n_out, lo):
+            return len({o * self.stride - lo + t for o in range(n_out) for t in range(self.k)} & set(range(n_in)))
+
+        (pt, _), (pl, _) = self.pads
+        ho, wo = self.out_hw
+        return touched(self.h, ho, pt), touched(self.w, wo, pl)
+
+    @property
+    def m(self) -> int:  # output pixels: the GEMM's M
+        ho, wo = self.out_hw
+        return self.batch * ho * wo
+
+    @property
+    def kdim(self) -> int:  # the GEMM's K
+        return self.k * self.k * self.cin
+
+    @property
+    def ops(self) -> int:  # a multiply and an add per (pixel, filter, tap)
+        return 2 * self.m * self.cout * self.kdim
+
+
+def int8_sites(cfg, rois: int, detections: int) -> List[ConvSite]:
+    """Every int8 convolution one detect batch of ``cfg`` runs, in order,
+    with ``rois`` proposals (the classifier's input) and ``detections``
+    (the mask head's) per image: the int8 stages' own topology
+    (``heads_int8.DetectStages``), walked on shape-only tensors (PyTorch's
+    meta device) with a conv that records each site."""
+    import torch
+    from torch import nn
+
+    from .models.heads_int8 import DetectStages, site_module
+    from .models.mask_rcnn import MaskRCNN
+    from .ops.quant import out_size, pad_for, xla_pads
+
+    sites: List[ConvSite] = []
+    with torch.device("meta"):
+        model = MaskRCNN(cfg)
+
+    class Recorder(nn.Module):
+        def forward(self, site, x, stride=1, relu=False):
+            cout, cin, k, _ = site_module(model, site).weight.shape
+            b, h, w, c = x.shape
+            pads = xla_pads(pad_for(site), k, stride, (h, w))
+            sites.append(ConvSite(site, b, h, w, c, cout, k, stride, pads, relu))
+            return x.new_empty((b, *out_size((h, w), k, stride, pads), cout), dtype=torch.float32)
+
+    stages = DetectStages(model, Recorder(), torch.float32)
+    h, w, c = cfg.image_shape
+    b, ch = cfg.batch_size, cfg.top_down_pyramid_size
+    with torch.device("meta"):
+        stages.rpn(stages.features(torch.empty(b, h, w, c)))
+        stages.classifier(torch.empty(b, rois, cfg.pool_size, cfg.pool_size, ch))
+        stages.mask(torch.empty(b, detections, cfg.mask_pool_size, cfg.mask_pool_size, ch))
+    return sites
+
+
+# the serving flagship's sites that chip_smoke.py checks and times: the stem
+# (byte loads), a 1x1/2, a 3x3, a 1x1 at K = 2048, the RPN's largest level,
+# fc1 (K = 12,544) and the mask head's first 3x3
+CONV_INT8_SITES = ("bb/conv1", "bb/res3a/conv1", "bb/res4b/conv2", "fpn/c5p5", "rpn/shared@p2", "cls/conv1",
+                   "mask/conv1")
+
+
+def conv_int8_bound(site: ConvSite) -> Tuple[float, str]:
+    """The int8 input the taps touch (:attr:`ConvSite.read_hw`) and the
+    weights read once and the f32 output written once over the memory rate,
+    against the int8 operations over the dense int8 tensor-core rate; the
+    larger, in ms."""
+    rows, cols = site.read_hw
+    nbytes = site.batch * rows * cols * site.cin + site.cout * site.kdim + site.m * site.cout * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, site.ops / PEAK_INT8_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def quantize_bound(n: int, itemsize: int) -> Tuple[float, str]:
+    """n values of ``itemsize`` bytes read and n int8 written; a division,
+    a rounding and two clamps per value in f32."""
+    return _bound(n * (itemsize + 1), n * 4)
 
 
 # --------------------------------------------------------------- the script

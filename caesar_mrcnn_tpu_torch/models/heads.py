@@ -38,7 +38,10 @@ class ClassifierHead(nn.Module):
 
     def forward(self, x: torch.Tensor):
         x = F.relu(self.mrcnn_class_bn1(self._as_linear(self.mrcnn_class_conv1, x)))
-        shared = F.relu(self.mrcnn_class_bn2(self._as_linear(self.mrcnn_class_conv2, x)))
+        return self.outputs(F.relu(self.mrcnn_class_bn2(self._as_linear(self.mrcnn_class_conv2, x))))
+
+    def outputs(self, shared: torch.Tensor):
+        """The class-logit and box denses on the shared [R, fc] features."""
         logits = self.mrcnn_class_logits(shared).float()
         bbox = self.mrcnn_bbox_fc(shared).float().reshape(-1, self.num_classes, 4)
         return logits, torch.softmax(logits, dim=-1), bbox
@@ -63,5 +66,9 @@ class MaskHead(nn.Module):
             conv = getattr(self, f"mrcnn_mask_conv{i}")
             bn = getattr(self, f"mrcnn_mask_bn{i}")
             x = F.relu(bn(conv(x)))
+        return self.upsample(x)
+
+    def upsample(self, x: torch.Tensor) -> torch.Tensor:
+        """The deconv and the per-class 1x1 on [R, 256, p, p] (NCHW)."""
         x = F.relu(self.mrcnn_mask_deconv(x))
         return torch.sigmoid(self.mrcnn_mask(x).float()).permute(0, 2, 3, 1)

@@ -93,7 +93,9 @@ def forward_inference(
     bbox_std_dev: torch.Tensor,      # [4]
 ) -> InferenceOutput:
     """The detect graph; every tensor lives on ``images.device`` and nothing
-    is read back to the host."""
+    is read back to the host. ``model`` is a ``MaskRCNN`` or any object
+    with its ``config``, ``features``, ``rpn``, ``classifier`` and ``mask``
+    (the int8 graph: ``heads_int8.DetectStages``)."""
     cfg = model.config
     pyramid = model.features(images)
     _, rpn_probs, rpn_bbox = model.rpn(pyramid)

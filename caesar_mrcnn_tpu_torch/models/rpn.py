@@ -28,8 +28,11 @@ class RPNHead(nn.Module):
     def forward(self, feature_map: torch.Tensor):
         """[B, C, H, W] -> (logits, probs [B, H*W*A, 2], deltas [B, H*W*A, 4]),
         anchors in (h, w, a) order like ``utils/anchors.py``."""
-        b = feature_map.shape[0]
-        shared = F.relu(self.rpn_conv_shared(feature_map))
+        return self.heads(F.relu(self.rpn_conv_shared(feature_map)))
+
+    def heads(self, shared: torch.Tensor):
+        """The two 1x1 heads on the shared map [B, 512, H, W]."""
+        b = shared.shape[0]
         logits = self.rpn_class_raw(shared).permute(0, 2, 3, 1).reshape(b, -1, 2).float()
         bbox = self.rpn_bbox_pred(shared).permute(0, 2, 3, 1).reshape(b, -1, 4).float()
         return logits, torch.softmax(logits, dim=-1), bbox

@@ -13,6 +13,10 @@ or a checkpoint restore gives it. Conversions:
   ``conv_transpose2d`` does;
 * frozen batch norm: params ``scale``/``bias`` and batch stats
   ``mean``/``var`` keep their names and values.
+
+:func:`qtree_to_torch` carries the int8 serving graph's quantized tree
+(``models/heads_int8.py``, the JAX package's layout) to the port's packed
+layout.
 """
 
 from __future__ import annotations
@@ -133,3 +137,22 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+
+
+def qtree_to_torch(qtree: Mapping) -> Dict[str, Dict]:
+    """The JAX package's quantized tree (numpy: ``w`` int8 HWIO [k, k, cin,
+    cout], ``sw`` and ``b`` f32 [cout], ``s_in`` f32) in the port's layout:
+    ``w`` packed int8 [cout, k, k, cin], contiguous; ``sw``, ``b`` f32
+    tensors; ``s_in`` a Python float (its f32 value)."""
+    out = {}
+    for site, q in qtree.items():
+        w = np.asarray(q["w"])
+        if w.dtype != np.int8:
+            raise TypeError(f"{site}: int8 weights expected, got {w.dtype}")
+        out[site] = {
+            "w": torch.from_numpy(np.ascontiguousarray(w.transpose(3, 0, 1, 2))),
+            "sw": torch.from_numpy(np.asarray(q["sw"], np.float32).copy()),
+            "b": torch.from_numpy(np.asarray(q["b"], np.float32).copy()),
+            "s_in": float(np.float32(q["s_in"])),
+        }
+    return out

@@ -16,7 +16,10 @@ Phases, one line each:
    bound (the least time the card could take: bytes over 3.35 TB/s or f32
    operations over 67 TFLOP/s, whichever is larger, counted from this
    run's data: NMS's IoU tests, the level pixels and mask sectors the
-   ROIAlign forward's and the crop's taps touch) and the roofline share;
+   ROIAlign forward's and the crop's taps touch; int8 operations over
+   1,979 TOPS for the int8 convolution) and the roofline share; the int8
+   convolution at seven sites of the serving flagship (int32 sums equal,
+   f32 outputs bit-equal) and the quantizer (bit-equal, on .5 ties too);
 4. slice: the tiled detect path (``Detector.dispatch_tiles`` / ``collect``,
    two batches in flight) over 16 tiles of 512^2 read from a seeded 2048^2
    FITS mosaic, at the flagship's full width (ResNet-101, FPN 256, batch 8,
@@ -46,20 +49,40 @@ Phases, one line each:
 9. train parity: one f32 SGD step of ResNet-101 at batch 2, 128^2, on the
    card and on the CPU from the same weights, batch and priorities: losses
    and gradients;
-10. cli: the system's own entry point, ``caesar_mrcnn_tpu_torch.cli.run.main``,
+10. serving: the int8 serving graph (``quant_mode="int8"``, the CLI's
+   ``--serving`` preset: 3000 pre-NMS / 512 post-NMS) at the serving
+   flagship's width (ResNet-101, FPN 256, batch 8, bf16), on the 16 tiles
+   of the seeded 2048^2 mosaic through ``dispatch_tiles``/``collect``, two
+   batches in flight: the first batch calibrates it (wall time); launches
+   (123 ``conv2d_int8`` and 123 ``quantize_int8`` per batch, 2 NMS and 2
+   ROIAlign per batch and 2 of each for the calibration); a timed third
+   pass (img/s); the int8 detect step beside the bf16 graph's on the same
+   weights and tiles (CUDA events), its device time by kernel (profiler);
+   peak memory; the int8 pyramid's relative L2 error against the folded
+   f32 graph's (bound 0.25, as ``tests/test_quant.py``);
+11. serving parity: one quantized tree, calibrated on the CPU, carried to
+   the card (f32, 256^2, batch 2): the int8 pyramid on the card equal to the
+   CPU's bit for bit, and ``SFinder.run_tiled`` with pinned heads over a
+   seeded 512^2 mosaic (4 tiles) giving the same catalog on both;
+12. cli: the system's own entry point, ``caesar_mrcnn_tpu_torch.cli.run.main``,
    in-process on the card (its default ``--device cuda``), at the CLI's
    default widths (ResNet-101, bf16, 6000 pre-NMS, 2000/1000 post-NMS, 512
    ROIs, 300 GT): ``train`` (10 Adam steps at 256^2, batch 8, on the 16
    seeded FITS images, 2 validation steps, a ``.pt`` checkpoint), a resume
    from it (4 micro-steps, ``--grad_accum_steps 2``), ``test`` on the same
    images (``map_summary.json`` read back) and tiled ``detect`` on the
-   seeded 2048^2 mosaic (catalog JSON and DS9 file read back): each mode's
-   wall time and launches; the train step's time and first and last losses.
+   seeded 2048^2 mosaic (catalog JSON and DS9 file read back), then
+   ``detect --serving`` and ``test --serving`` (the int8 graph): each
+   mode's wall time and launches; the train step's time and first and last
+   losses.
 
 Then the card's name and power limit, one JSON line with the kernels'
-record (launches on the main paths: detect, catalog, train and cli; error,
+record (launches on the main paths: detect, catalog, train, serving and
+cli; error,
 kernel, plain and bound times summed over the cases; ``library_ms`` null,
-with the reason beside it), and as the last line
+with the reason beside it, but for the int8 convolution: ``torch._int_mm``
+at the sites where one matrix product computes its int32 sums), and as the
+last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result line. It needs a CUDA device and never falls
 back to the CPU.
@@ -84,6 +107,11 @@ NO_LIBRARY = {
     "roi_align_backward": "none: no PyTorch call scatters bilinear taps into four levels",
     "crop_and_resize": "none: F.grid_sample cannot pick each box's mask channel and blends samples partly "
                        "outside the map",
+    "conv2d_int8": "torch._int_mm (the int32 sums alone, no epilogue) at the sites where one matrix product "
+                   "computes them (a 1x1 stride-1 conv; a VALID conv whose window covers its input); PyTorch "
+                   "has no int8 convolution on CUDA for the others",
+    "quantize_int8": "none: torch.quantize_per_tensor multiplies by the reciprocal of the scale and clips to "
+                     "[-128, 127]; the JAX graph divides and clips to +-127",
 }
 
 
@@ -360,6 +388,131 @@ def check_crop_and_resize(dev, rng, card_name: str) -> dict:
     b, h, g, r, crop = kb.CROP_CASE
     rec = _record()
     crop_against_plain(rec, *kb.crop_case(rng, dev, b, h, g, r), (crop, crop), "seeded", card_name)
+    return rec
+
+
+def serving_config(**overrides):
+    """The serving flagship with the CLI's ``--serving`` preset: the int8
+    graph and the 3000 / 512 proposal budget."""
+    kw = dict(quant_mode="int8", pre_nms_limit=3000, post_nms_rois_inference=512)
+    kw.update(overrides)
+    return flagship_config(**kw)
+
+
+def check_conv_int8(dev, card_name: str):
+    """The int8 convolution at seven sites of the serving flagship
+    (``kernel_bench.CONV_INT8_SITES``), on seeded int8 inputs and weights
+    over the whole range and seeded f32 scales and biases: the kernel's
+    int32 sums equal to the plain version's (f64 sums, exact) and its f32
+    outputs bit-equal (the same product, then the same sum). Beside each:
+    ``torch._int_mm``'s time where one matrix product computes the same
+    int32 sums (the library yardstick), and the bf16 cuDNN convolution the
+    float graph runs at the site (context only: another function)."""
+    import torch
+    import torch.nn.functional as F
+
+    from caesar_mrcnn_tpu_torch import kernel_bench as kb
+    from caesar_mrcnn_tpu_torch.ops import quant as Q
+
+    rec = _record()
+    library = {"ms": 0.0, "kernel_ms": 0.0, "sites": []}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sites = {site.name: site for site in kb.int8_sites(serving_config(), 512, 100)}
+    for name in kb.CONV_INT8_SITES:
+        site = sites[name]
+        x = torch.randint(-127, 128, (site.batch, site.h, site.w, site.cin), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (site.cout, site.k, site.k, site.cin), generator=gen, device=dev,
+                          dtype=torch.int8)
+        sw = torch.rand(site.cout, generator=gen, device=dev) * 1e-3 + 1e-6
+        b = torch.rand(site.cout, generator=gen, device=dev) * 2 - 1
+
+        def kernel():
+            return Q.conv2d_int8(x, w, sw, b, site.stride, site.pads, site.relu)
+
+        def plain():
+            return Q.conv2d_int8_plain(x, w, sw, b, site.stride, site.pads, site.relu)
+
+        acc, acc_plain = Q.conv2d_int8_accumulate(x, w, site.stride, site.pads), \
+            Q.conv2d_int8_accumulate_plain(x, w, site.stride, site.pads)
+        out, out_plain = kernel(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(acc, acc_plain):
+            raise AssertionError(f"conv2d_int8 {name}: {int((acc != acc_plain).sum())} int32 sums differ")
+        if not torch.equal(out.view(torch.int32), out_plain.view(torch.int32)):
+            raise AssertionError(f"conv2d_int8 {name}: {int((out != out_plain).sum())} f32 outputs differ, max abs "
+                                 f"{float((out - out_plain).abs().max())}")
+        del acc, acc_plain, out, out_plain
+        ms, plain_ms = kb.median_ms(kernel, kb.REPS), kb.median_ms(plain, 3)
+        bound = kb.conv_int8_bound(site)
+        lib = ""
+        if site.k == 1 and site.stride == 1 or site.k == site.h == site.w and site.pads == ((0, 0), (0, 0)):
+            a2, w2 = x.view(site.m, site.kdim), w.view(site.cout, site.kdim).t()
+
+            def int_mm():
+                return torch._int_mm(a2, w2)
+
+            if not torch.equal(int_mm(), Q.conv2d_int8_accumulate(x, w, site.stride, site.pads).view(site.m, -1)):
+                raise AssertionError(f"conv2d_int8 {name}: torch._int_mm's sums differ from the kernel's")
+            lib_ms = kb.median_ms(int_mm, kb.REPS)
+            library["ms"] += lib_ms
+            library["kernel_ms"] += ms
+            library["sites"].append(name)
+            lib = f"torch._int_mm {lib_ms:.4f} ms (int32 sums only); "
+        xf = torch.randn(site.batch, site.cin, site.h, site.w, generator=gen, device=dev).to(
+            torch.bfloat16, memory_format=torch.channels_last)
+        wf = torch.randn(site.cout, site.cin, site.k, site.k, generator=gen, device=dev).to(
+            torch.bfloat16, memory_format=torch.channels_last)
+        (pt, pb), (pl, pr) = site.pads
+        padding = (pt, pl) if (pt, pl) == (pb, pr) else 0
+        cudnn_ms = kb.median_ms(lambda: F.conv2d(xf, wf, stride=site.stride, padding=padding), kb.REPS)
+        print(f"kernels: conv2d_int8 {name} {site.k}x{site.k}/{site.stride} [{site.batch},{site.h},{site.w},"
+              f"{site.cin}] -> {site.cout}, M={site.m} K={site.kdim} N={site.cout}: int32 sums equal, f32 "
+              f"bit-equal; kernel {ms:.4f} ms ({site.ops / ms / 1e9:.1f} TOPS), plain {plain_ms:.3f} ms (median, "
+              f"CUDA events); {share(bound[0], ms)} ({bound[1]}); {lib or 'no PyTorch int8 call; '}cuDNN bf16 "
+              f"conv of the float graph {cudnn_ms:.4f} ms (context) [{card_name}]")
+        _add(rec, 0.0, ms, plain_ms, bound)
+        del x, w, xf, wf
+    torch.cuda.empty_cache()
+    return rec, library
+
+
+def check_quantize_int8(dev, rng, card_name: str) -> dict:
+    """The quantizer bit-equal to its plain version at the serving graph's
+    inputs (the stem's f32 image batch, the RPN's bf16 P2, a mask-head f32
+    activation) and on exact .5 ties (a power-of-two scale), f32 and
+    bf16."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch import kernel_bench as kb
+    from caesar_mrcnn_tpu_torch.ops import quant as Q
+
+    rec = _record()
+    ties = torch.from_numpy((rng.randint(-140, 140, 1 << 22) + 0.5).astype(np.float32) * 0.25).to(dev)
+    cases = [
+        ("stem input f32 [8,512,512,3]", torch.rand(8, 512, 512, 3, device=dev) * 255, 255 / 127),
+        ("rpn/shared@p2 input bf16 [8,128,128,256]",
+         torch.randn(8, 128, 128, 256, device=dev).to(torch.bfloat16), 4.5 / 127),
+        ("mask/conv2 input f32 [800,14,14,256]", torch.randn(800, 14, 14, 256, device=dev).relu_(), 4.0 / 127),
+        ("ties f32 [4M]", ties, 0.25),
+        ("ties bf16 [4M]", ties.to(torch.bfloat16), 0.25),
+    ]
+    for label, x, s_in in cases:
+        def kernel():
+            return Q.quantize_int8(x, s_in)
+
+        def plain():
+            return Q.quantize_int8_plain(x, s_in)
+
+        k, p = kernel(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(k, p):
+            raise AssertionError(f"quantize_int8 {label}: {int((k != p).sum())} values differ from the plain version")
+        ms, plain_ms = kb.median_ms(kernel, kb.REPS), kb.median_ms(plain, 5)
+        bound = kb.quantize_bound(x.numel(), x.element_size())
+        print(f"kernels: quantize_int8 {label} s_in {s_in:.6g}: bit-equal; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (median, CUDA events); {share(bound[0], ms)} ({bound[1]}) [{card_name}]")
+        _add(rec, 0.0, ms, plain_ms, bound)
     return rec
 
 
@@ -680,6 +833,179 @@ def check_catalog_parity(card_name: str) -> None:
         raise AssertionError("card and CPU catalogs differ:\n" + "\n".join(diffs[:20]))
 
 
+# ------------------------------------------------------------------ serving
+
+
+INT8_SITES = 123  # int8 convolutions (and quantizers) per detect batch at ResNet-101
+
+
+def _int8_counters():
+    from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
+    from caesar_mrcnn_tpu_torch.ops.quant import conv2d_int8, quantize_int8
+    from caesar_mrcnn_tpu_torch.ops.roi_align import roi_align
+
+    return {"nms": nms_padded, "roi_align": roi_align, "conv2d_int8": conv2d_int8, "quantize_int8": quantize_int8}
+
+
+def _premold(det, tiles: np.ndarray):
+    """A tile batch as ``dispatch_tiles`` molds it on the device, with the
+    batch's anchors and metas."""
+    import torch
+
+    h, w, c = det.config.image_shape
+    x = torch.from_numpy(tiles).to(det.device).float()[..., None].expand(-1, -1, -1, c) - det._mean
+    anchors, metas = det._constants((h, w, c))
+    return x.contiguous(), metas[:len(tiles)], anchors
+
+
+def check_serving(card_name: str) -> dict:
+    """The int8 serving graph at the serving flagship's width on the card,
+    through ``dispatch_tiles``/``collect`` (module docstring, phase 10)."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch import kernel_bench as kb
+    from caesar_mrcnn_tpu_torch.inference.detector import Detector, build_detector
+    from caesar_mrcnn_tpu_torch.models import heads_int8 as Q
+    from caesar_mrcnn_tpu_torch import weights as W
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mosaic.fits")
+        write_mosaic(path)
+        tiles = read_tiles(path, 2048, 512)
+    cfg = serving_config()
+    det = build_detector(cfg, seed=SEED, device="cuda")
+    settle_random_weights(det.model)
+    batches = len(tiles) // cfg.batch_size
+    calibration = []
+    quantize_molded = det._quantize_molded
+
+    def timed_calibration(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        quantize_molded(*args)
+        torch.cuda.synchronize()
+        calibration.append(time.perf_counter() - t)
+
+    det._quantize_molded = timed_calibration
+    counters = _int8_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters.values():
+        k.launches = 0
+    results = run_pass(det, tiles)
+    launches = {name: k.launches for name, k in counters.items()}
+    expected = {"nms": 2 * batches + 2, "roi_align": 2 * batches + 2, "conv2d_int8": INT8_SITES * batches,
+                "quantize_int8": INT8_SITES * batches}
+    if launches != expected or len(calibration) != 1 or len(det.qtree) != INT8_SITES:
+        raise AssertionError(f"serving launches {launches}, expected {expected} (123 int8 convs and quantizers per "
+                             f"batch, 2 NMS and 2 ROIAlign per batch and 2 of each for the calibration); "
+                             f"{len(calibration)} calibrations, {len(det.qtree)} sites")
+    for r in results:
+        n = len(r["class_ids"])
+        if r["masks"].shape != (512, 512, n) or r["rois"].shape != (n, 4):
+            raise AssertionError(f"serving result shapes {r['rois'].shape} {r['masks'].shape}")
+        if not (np.isfinite(r["scores"]).all() and ((r["scores"] >= 0) & (r["scores"] <= 1)).all()):
+            raise AssertionError("serving: non-finite or out-of-range scores")
+    counts = [len(r["class_ids"]) for r in results]
+    if len(results) != len(tiles) or sum(counts) == 0:
+        raise AssertionError(f"serving: {len(results)} results, detections per tile {counts}")
+    peak_first = torch.cuda.max_memory_allocated()
+    run_pass(det, tiles)  # steady state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    run_pass(det, tiles)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serving: {len(tiles)} tiles of 512^2 from the seeded 2048^2 mosaic, ResNet-101 batch 8 int8 "
+          f"(bf16 heads), 3000/512 proposals; calibration on the first batch {calibration[0]:.3f} s; launches over "
+          f"the first pass {launches} ({INT8_SITES} conv2d_int8 and {INT8_SITES} quantize_int8 per batch); "
+          f"detections per tile {counts} [{card_name}]")
+
+    x, metas, anchors = _premold(det, tiles[:cfg.batch_size])
+    bf16 = Detector(flagship_config(pre_nms_limit=3000, post_nms_rois_inference=512), det.model, "cuda")
+    steps = {name: kb.median_ms(lambda d=d: d._step(x, metas, anchors, len(x)), 10)
+             for name, d in (("int8", det), ("bf16", bf16), ("int8 again", det), ("bf16 again", bf16))}
+    split = kb.device_split(lambda: det._step(x, metas, anchors, len(x)), 3)
+    own = {k: sum(ms for key, (ms, _) in split.items() if k in key) for k in ("conv_int8_kernel", "quantize_int8_kernel")}
+    total = sum(ms for ms, _ in split.values())
+    top = sorted(split.items(), key=lambda kv: -kv[1][0])[:5]
+    bf16_total = sum(ms for ms, _ in kb.device_split(lambda: bf16._step(x, metas, anchors, len(x)), 3).values())
+    conv_bound = sum(kb.conv_int8_bound(s)[0]
+                     for s in kb.int8_sites(cfg, cfg.post_nms_rois_inference, cfg.detection_max_instances))
+    print(f"serving: timed third pass {len(tiles) / dt:.2f} img/s (dispatch/collect with unmold, tiles pre-read); "
+          f"detect step per batch of 8 (median of 10, CUDA events): int8 {steps['int8']:.2f} / "
+          f"{steps['int8 again']:.2f} ms, bf16 graph on the same weights and tiles {steps['bf16']:.2f} / "
+          f"{steps['bf16 again']:.2f} ms; peak device memory {peak_first / 2**30:.2f} GiB over the first pass "
+          f"(the f32 calibration in it), {peak / 2**30:.2f} GiB over the timed pass [{card_name}]")
+    print(f"serving: int8 step's device time {total:.2f} ms (profiler, per step; the bf16 graph's {bf16_total:.2f} "
+          f"ms): conv_int8_kernel {own['conv_int8_kernel']:.2f} ms (the {INT8_SITES} sites' summed bound "
+          f"{conv_bound:.4f} ms), quantize_int8_kernel "
+          f"{own['quantize_int8_kernel']:.2f} ms, the rest {total - sum(own.values()):.2f} ms; top: "
+          + "; ".join(f"{k[:50]} {v[0]:.3f}" for k, v in top) + f" [{card_name}]")
+
+    folded = Q.fold_detect(W.state_dict_to_flax(det.model.state_dict()), cfg)
+    with torch.inference_mode(), Q.exact_f32():
+        ref = Q.folded_stages(det.model, folded).features(x)
+        got = det._stages.features(x)
+        rel = [float((g.float() - r).norm() / r.norm()) for g, r in zip(got, ref)]
+    print(f"serving: int8 pyramid P2..P6 against the folded f32 graph's, relative L2 "
+          + ", ".join(f"{v:.4f}" for v in rel) + f" (bound 0.25) [{card_name}]")
+    if not all(0 < v < 0.25 for v in rel):
+        raise AssertionError(f"serving: int8 pyramid relative L2 {rel} outside (0, 0.25)")
+    return launches
+
+
+def check_serving_parity(card_name: str) -> None:
+    """One quantized tree, calibrated on the CPU (the plain versions) and
+    carried to the card (``Detector.use_qtree``), at f32, 256^2, batch 2,
+    heads pinned: the int8 pyramid of one tile batch on the card equal to
+    the CPU's bit for bit (integer sums; the quantizer divides and the
+    epilogue rounds its product and its sum on both; the rest of the
+    backbone and FPN adds and takes maxima, exact in f32), and
+    ``SFinder.run_tiled`` over a seeded 512^2 mosaic (4 tiles) giving the
+    same catalog on both, as ``catalog parity:`` holds it."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch.inference.detector import build_detector
+    from caesar_mrcnn_tpu_torch.testing import catalog_differences, pin_heads
+
+    cfg = serving_config(image_min_dim=256, image_max_dim=256, images_per_device=2, compute_dtype="float32",
+                         tile_xsize=256, tile_ysize=256)
+    dets = {}
+    for device in ("cpu", "cuda"):
+        dets[device] = build_detector(cfg, seed=SEED, device=device)
+        settle_random_weights(dets[device].model)
+        pin_heads(dets[device].model)
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mosaic.fits")
+        write_blocks_mosaic(path, 512, 512)
+        tiles = read_tiles(path, 512, 256)[:2]
+        for device in ("cpu", "cuda"):
+            det = dets[device]
+            if device == "cuda":
+                det.use_qtree(dets["cpu"].qtree)
+            t = time.perf_counter()
+            out[device] = run_catalog(det, cfg, path, os.path.join(tmp, device))[1]
+            seconds[device] = time.perf_counter() - t
+    with torch.inference_mode():
+        pyr = {device: [p.cpu() for p in det._stages.features(_premold(det, tiles)[0])]
+               for device, det in dets.items()}
+    same = [torch.equal(g.view(torch.int32), c.view(torch.int32)) for g, c in zip(pyr["cuda"], pyr["cpu"])]
+    diffs = catalog_differences(out["cpu"], out["cuda"], rtol=1e-6, score_atol=1e-5)
+    print(f"serving parity: one quantized tree ({len(dets['cpu'].qtree)} sites) calibrated on the CPU, used on the "
+          f"card; ResNet-101 f32 int8 256^2 batch 2, heads pinned: int8 pyramid P2..P6 card = CPU bit for bit "
+          f"{same}; catalog over 4 tiles of a seeded 512^2 mosaic: card {len(out['cuda']['objs'])} sources, CPU "
+          f"{len(out['cpu']['objs'])}, {len(diffs)} differences; card {seconds['cuda']:.2f} s, CPU "
+          f"{seconds['cpu']:.2f} s [{card_name}]")
+    if not all(same):
+        raise AssertionError(f"serving parity: the card's int8 pyramid differs from the CPU's: {same}")
+    if not out["cuda"]["objs"] or diffs:
+        raise AssertionError("serving parity: card and CPU catalogs differ:\n" + "\n".join(diffs[:20]))
+
+
 # -------------------------------------------------------------------- train
 
 
@@ -981,11 +1307,13 @@ def check_cli(card_name: str) -> dict:
     ``cli.run.main`` with the CLI's defaults for everything not named."""
     from caesar_mrcnn_tpu_torch.config import detector_config
     from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
+    from caesar_mrcnn_tpu_torch.ops.quant import conv2d_int8, quantize_int8
     from caesar_mrcnn_tpu_torch.ops.roi_align import crop_and_resize, roi_align, roi_align_backward
     from caesar_mrcnn_tpu_torch.train import trainer as T
     from caesar_mrcnn_tpu_torch.train.checkpoints import checkpoint_name
 
-    counters = (nms_padded, roi_align, roi_align_backward, crop_and_resize)
+    counters = (nms_padded, roi_align, roi_align_backward, crop_and_resize, conv2d_int8, quantize_int8)
+    no_int8 = {"conv2d_int8": 0, "quantize_int8": 0}
     name = detector_config().name  # the CLI's checkpoints are mask_rcnn_<name>_NNNN.pt
     cwd = os.getcwd()
     out = {}
@@ -1013,7 +1341,7 @@ def check_cli(card_name: str) -> dict:
                 # per micro-step 1 NMS, 2 ROIAlign forward and backward, 1 crop;
                 # per validation step the same without the backward
                 expected = {"nms_padded": steps + 2, "roi_align": 2 * (steps + 2),
-                            "roi_align_backward": 2 * steps, "crop_and_resize": steps + 2}
+                            "roi_align_backward": 2 * steps, "crop_and_resize": steps + 2, **no_int8}
                 if launches != expected:
                     raise AssertionError(f"cli {mode} launches {launches}, expected {expected}")
                 if not finite:
@@ -1027,37 +1355,48 @@ def check_cli(card_name: str) -> dict:
             if not os.path.isfile(ckpt):
                 raise AssertionError(f"the resume wrote no {os.path.basename(ckpt)}")
             scores = ["--scoreThr", "0.0", "--scoreThrPerClass", "none", "--weights", ckpt]
-            wall, launches = run_cli(["test", "--datalist", datalist] + scores + data, counters)
-            with open(os.path.join(logs, "map_summary.json")) as f:
-                summary = json.load(f)
-            if launches != {"nms_padded": 4, "roi_align": 4, "roi_align_backward": 0, "crop_and_resize": 0}:
-                raise AssertionError(f"cli test launches {launches}, expected 2 NMS and 2 ROIAlign per batch x 2")
-            runs["test"] = (wall, launches)
-            print(f"cli: test on the 16 images, batch 8: {wall:.2f} s wall; map_summary.json "
-                  f"{json.dumps(summary)[:300]}; launches {launches} [{card_name}]")
-            catalog_path = os.path.join(tmp, "catalog.json")
-            wall, launches = run_cli(["detect", "--image", mosaic, "--split_img_in_tiles", "--tile_xsize", "512",
-                                      "--tile_ysize", "512", "--nimg_per_gpu", "8", "--detect_outfile_json",
-                                      catalog_path] + scores, counters)
-            if launches != {"nms_padded": 4, "roi_align": 4, "roi_align_backward": 0, "crop_and_resize": 0}:
-                raise AssertionError(f"cli detect launches {launches}, expected 2 NMS and 2 ROIAlign per batch x 2")
-            with open(catalog_path) as f:
-                catalog = json.load(f)
-            with open(os.path.join(tmp, "ds9_mosaic.reg")) as f:
-                regions = f.read()
-            if catalog["objs"]:
-                check_catalog_files(catalog, catalog, regions, 2048, 2048)
-            runs["detect"] = (wall, launches)
-            print(f"cli: detect on the 2048^2 mosaic, 16 tiles of 512^2, batch 8: {wall:.2f} s wall; "
-                  f"{len(catalog['objs'])} sources; catalog JSON and DS9 file read back; launches {launches} "
-                  f"[{card_name}]")
+            # two batches each; with --serving, 123 int8 convs and quantizers per
+            # batch, and one NMS and ROIAlign pair more each for the calibration
+            float_launches = {"nms_padded": 4, "roi_align": 4, "roi_align_backward": 0, "crop_and_resize": 0,
+                              **no_int8}
+            serving_launches = {**float_launches, "nms_padded": 6, "roi_align": 6,
+                                "conv2d_int8": 2 * INT8_SITES, "quantize_int8": 2 * INT8_SITES}
+            for mode, serving in (("test", []), ("test --serving", ["--serving"])):
+                wall, launches = run_cli(["test", "--datalist", datalist] + scores + data + serving, counters)
+                with open(os.path.join(logs, "map_summary.json")) as f:
+                    summary = json.load(f)
+                expected = serving_launches if serving else float_launches
+                if launches != expected:
+                    raise AssertionError(f"cli {mode} launches {launches}, expected {expected}")
+                runs[mode] = (wall, launches)
+                print(f"cli: {mode} on the 16 images, batch 8: {wall:.2f} s wall; map_summary.json "
+                      f"{json.dumps(summary)[:300]}; launches {launches} [{card_name}]")
+            for mode, serving in (("detect", []), ("detect --serving", ["--serving"])):
+                catalog_path = os.path.join(tmp, "catalog.json")
+                wall, launches = run_cli(["detect", "--image", mosaic, "--split_img_in_tiles", "--tile_xsize", "512",
+                                          "--tile_ysize", "512", "--nimg_per_gpu", "8", "--detect_outfile_json",
+                                          catalog_path] + scores + serving, counters)
+                expected = serving_launches if serving else float_launches
+                if launches != expected:
+                    raise AssertionError(f"cli {mode} launches {launches}, expected {expected}")
+                with open(catalog_path) as f:
+                    catalog = json.load(f)
+                with open(os.path.join(tmp, "ds9_mosaic.reg")) as f:
+                    regions = f.read()
+                if catalog["objs"]:
+                    check_catalog_files(catalog, catalog, regions, 2048, 2048)
+                runs[mode] = (wall, launches)
+                print(f"cli: {mode} on the 2048^2 mosaic, 16 tiles of 512^2, batch 8: {wall:.2f} s wall; "
+                      f"{len(catalog['objs'])} sources; catalog JSON and DS9 file read back; launches {launches} "
+                      f"[{card_name}]")
         finally:
             T.make_train_step = make_train_step
             os.chdir(cwd)
     for name, k in (("nms", "nms_padded"), ("roi_align", "roi_align"), ("roi_align_backward", "roi_align_backward"),
-                    ("crop_and_resize", "crop_and_resize")):
+                    ("crop_and_resize", "crop_and_resize"), ("conv2d_int8", "conv2d_int8"),
+                    ("quantize_int8", "quantize_int8")):
         out[name] = sum(launches[k] for _, launches in runs.values())
-    print(f"cli: {sum(w for w, _ in runs.values()):.2f} s over the four calls [{card_name}]")
+    print(f"cli: {sum(w for w, _ in runs.values()):.2f} s over the {len(runs)} calls [{card_name}]")
     return out
 
 
@@ -1094,6 +1433,8 @@ def main() -> None:
     roi = check_roi_align(dev, rng, card_name)
     roi_bwd = check_roi_align_backward(dev, rng, card_name)
     crop = check_crop_and_resize(dev, rng, card_name)
+    conv8, conv8_library = check_conv_int8(dev, card_name)
+    quant8 = check_quantize_int8(dev, rng, card_name)
     torch.cuda.empty_cache()
     detect = check_slice(card_name)
     check_parity(card_name)
@@ -1106,16 +1447,21 @@ def main() -> None:
                                           "crop_and_resize": crop}, card_name)
         check_train_parity(ds, card_name)
     torch.cuda.empty_cache()
+    serving = check_serving(card_name)
+    check_serving_parity(card_name)
+    torch.cuda.empty_cache()
     t = time.perf_counter()
     cli = check_cli(card_name)
     print(f"cli: phase {time.perf_counter() - t:.2f} s [{card_name}]")
-    print(f"launches: detect path {detect}, catalog path {catalog}, train path {train}, cli {cli}")
+    print(f"launches: detect path {detect}, catalog path {catalog}, train path {train}, serving path {serving}, "
+          f"cli {cli}")
+    paths = (detect, catalog, train, serving, cli)
 
-    def record(name, source, replaces, rec):
+    def record(name, source, replaces, rec, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"caesar_mrcnn_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": detect.get(name, 0) + catalog.get(name, 0) + train[name] + cli[name],
+                "replaces": replaces, "launches": sum(p.get(name, 0) for p in paths),
                 "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-                "bound_ms": rec["bound_ms"], "bound_by": max(rec["by"], key=rec["by"].get), "library_ms": None,
+                "bound_ms": rec["bound_ms"], "bound_by": max(rec["by"], key=rec["by"].get), "library_ms": library_ms,
                 "library": NO_LIBRARY[name]}
 
     kernels = [
@@ -1123,6 +1469,10 @@ def main() -> None:
         record("roi_align", "roi_align.cu", "caesar_mrcnn_tpu/ops/roi_align_pallas.py:175", roi),
         record("roi_align_backward", "roi_align.cu", "caesar_mrcnn_tpu/ops/roi_align.py:114", roi_bwd),
         record("crop_and_resize", "crop_and_resize.cu", "caesar_mrcnn_tpu/ops/roi_align.py:43", crop),
+        {**record("conv2d_int8", "conv_int8.cu", "caesar_mrcnn_tpu/models/backbone_int8.py:276", conv8,
+                  conv8_library["ms"]),
+         "library_sites": conv8_library["sites"], "ms_at_library_sites": conv8_library["kernel_ms"]},
+        record("quantize_int8", "conv_int8.cu", "caesar_mrcnn_tpu/models/backbone_int8.py:272", quant8),
     ]
     print(card_name)
     print(json.dumps({"kernels": kernels}))

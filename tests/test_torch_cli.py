@@ -3,14 +3,16 @@ package's (``caesar_mrcnn_tpu.cli.run``), on the CPU at small sizes:
 
 * the same flags and defaults, and ``build_config`` equal field by field,
   on a table of argv lists;
-* ``detect`` (a serial window, square tiles, rectangular tiles) and
-  ``test`` through both CLIs on the same weights: ``PRNGKey(0)``'s
+* ``detect`` (a serial window, square tiles, rectangular tiles, and
+  square tiles with ``--serving``, the int8 graph) and ``test`` (float and
+  ``--serving``) through both CLIs on the same weights: ``PRNGKey(0)``'s
   variables with ``testing.pin_heads``, written once as the JAX package's
   orbax checkpoint and once as the port's ``.pt``. Both configs are set to
   f32 (the CLI has no flag for it), so that the two frameworks' bf16
-  roundings cannot reorder proposals. The catalogs and DS9 files, and the
-  tester's tables and dumps, must agree: every value equal but the scores,
-  within 1e-5;
+  roundings cannot reorder proposals; with ``--serving``, the port's int8
+  calibration is the JAX package's (``jax_calibration``). The catalogs and
+  DS9 files, and the tester's tables and dumps, must agree: every value
+  equal but the scores, within 1e-5;
 * ``train`` (gradient accumulation, validation) -> resume -> ``test`` ->
   ``detect`` on the port alone, as ``tests/test_cli_e2e.py`` runs the JAX
   CLI;
@@ -29,10 +31,12 @@ import torch
 
 from caesar_mrcnn_tpu import config as jconfig
 from caesar_mrcnn_tpu.cli import run as jcli
+from caesar_mrcnn_tpu.models import heads_int8 as jheads_int8
 from caesar_mrcnn_tpu.models.mask_rcnn import MaskRCNN as JaxMaskRCNN
 from caesar_mrcnn_tpu.train import checkpoints as JCK
 from caesar_mrcnn_tpu_torch import weights as W
 from caesar_mrcnn_tpu_torch.cli import run as tcli
+from caesar_mrcnn_tpu_torch.models import heads_int8 as theads_int8
 from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
 from caesar_mrcnn_tpu_torch.testing import pin_heads
 from caesar_mrcnn_tpu_torch.train import checkpoints as TCK
@@ -51,6 +55,7 @@ CONFIG_ARGVS = {
     "tiny": ["train"] + TINY,
     "grayimg": ["train", "--grayimg", "--datalist", "list.dat"],
     "serving without int8": ["detect", "--image", "x.fits", "--serving", "--quant_mode", "none"],
+    "serving alone": ["detect", "--image", "x.fits", "--serving"],
     "per-class thresholds": ["test", "--scoreThrPerClass", "sidelobe=0.8,galaxy=0.5", "--scoreThr", "0.3"],
     "rectangular tiles": ["detect", "--image", "x.fits", "--split_img_in_tiles", "--tile_xsize", "192",
                           "--tile_ysize", "128", "--tile_xstep", "0.5"],
@@ -140,9 +145,47 @@ def test_detect_equals_jax_cli(case, weights, mosaic, f32, tmp_path, monkeypatch
     _assert_same_catalogs(out, score_atol=1e-5)
 
 
+@pytest.fixture()
+def jax_calibration(monkeypatch):
+    """The port's int8 calibration computed by the JAX package's
+    ``calibrate_detect`` on the same inputs and weights: the two
+    calibrations sum their f32 convolutions in another order, their scales
+    differ in the last bits (held within 1e-5 by
+    ``tests/test_torch_quant.py``), and a scale one ulp off moves a few
+    quantized values by a step, enough to change a cross-tile merge. With
+    one set of scales, the rest of the int8 path is compared exactly."""
+    def calibrate(model, folded, molded, image_metas, anchors, batch=None):
+        jcfg = jconfig.Config(**dataclasses.asdict(model.config))
+        variables = W.state_dict_to_flax(model.state_dict())
+        arrays = (torch.as_tensor(a).cpu().numpy() for a in (molded, image_metas, anchors))
+        return jheads_int8.calibrate_detect(JaxMaskRCNN(jcfg), variables, jcfg, folded, *arrays, batch=batch)
+
+    monkeypatch.setattr(theads_int8, "calibrate_detect", calibrate)
+
+
+def test_detect_serving_equals_jax_cli(weights, mosaic, f32, jax_calibration, tmp_path, monkeypatch):
+    """``--serving``: both CLIs calibrate the int8 graph on their first tile
+    batch and detect with it (the small proposal budget of ``SMALL`` wins
+    over the preset's, as explicit flags do)."""
+    argv = ["detect", "--image", mosaic, "--detect_outfile_json", "catalog.json", "--serving"]
+    dirs = _both(tmp_path, monkeypatch, weights, argv + DETECT_CASES["square tiles"])
+    out = {name: (json.loads((d / "catalog.json").read_text()), (d / "ds9_mosaic.reg").read_bytes())
+           for name, d in dirs.items()}
+    _assert_same_catalogs(out, score_atol=1e-5)
+
+
 def test_test_mode_equals_jax_cli(weights, f32, tmp_path, monkeypatch):
+    _assert_same_tester_outputs(tmp_path, monkeypatch, weights, [])
+
+
+def test_test_mode_serving_equals_jax_cli(weights, f32, jax_calibration, tmp_path, monkeypatch):
+    """``test --serving``: the int8 graph, calibrated on the first batch."""
+    _assert_same_tester_outputs(tmp_path, monkeypatch, weights, ["--serving"])
+
+
+def _assert_same_tester_outputs(tmp_path, monkeypatch, weights, extra):
     listfile = _write_dataset(tmp_path)
-    dirs = _both(tmp_path, monkeypatch, weights, ["test", "--datalist", listfile])
+    dirs = _both(tmp_path, monkeypatch, weights, ["test", "--datalist", listfile] + extra)
     out = {name: d / "logs" for name, d in dirs.items()}
     for name in ("completeness.csv", "reliability.csv"):
         got, ref = _rows(out["torch"] / name), _rows(out["jax"] / name)
@@ -216,8 +259,6 @@ REFUSALS = {
     # name: (port argv, what the port raises or None for return code 1, the JAX CLI's behaviour)
     "export": (["export", "--export_path", "a.stablehlo"], (NotImplementedError, "A15"),
                lambda: jcli.validate_args(jcli.parse_args(["export", "--export_path", "a"])) == 0),
-    "serving alone": (["detect", "--image", "x.fits", "--serving"], (NotImplementedError, "A14"),
-                      lambda: _jax_config(["detect", "--serving"]).quant_mode == "int8"),
     "ngpu 2": (["detect", "--image", "x.fits", "--ngpu", "2"], (NotImplementedError, "A13"),
                lambda: _jax_config(["detect", "--ngpu", "2"]).num_devices == 2),
     "roi gather fp8": (["detect", "--image", "x.fits", "--roi_gather_dtype", "float8_e4m3fn"],

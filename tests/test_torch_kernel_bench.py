@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from caesar_mrcnn_tpu_torch import kernel_bench as kb
+from caesar_mrcnn_tpu_torch import weights as W
 from caesar_mrcnn_tpu_torch.ops import roi_align as R
 
 # a 32^2 image: every box is on P2 (its side over 224 is below 2^-1.5)
@@ -160,3 +161,91 @@ def test_own_kernels_split_the_profile():
     }
     own, other, launches = kb.own_kernels(split)
     assert own == pytest.approx(0.3) and other == pytest.approx(0.007) and launches == 5.0
+
+
+# ------------------------------------------------------- the int8 serving graph
+
+SERVING = dict(num_classes=4, image_min_dim=512, image_max_dim=512, images_per_device=8,
+               compute_dtype="bfloat16", quant_mode="int8", pre_nms_limit=3000, post_nms_rois_inference=512)
+
+
+def test_int8_sites_of_the_serving_flagship():
+    """ResNet-101 at 512^2, batch 8, 512 proposals and 100 detections per
+    image: 123 int8 convolutions, 2.14 T operations (2 per multiply-add):
+    the mask head 0.74 T, the RPN's shared conv 0.41 T, the backbone's 3x3
+    convs 0.32 T, the FPN's 3x3 convs 0.205 T, the classifier's fc1 0.11 T."""
+    from caesar_mrcnn_tpu_torch.config import detector_config
+
+    sites = kb.int8_sites(detector_config(**SERVING), 512, 100)
+    groups = {}
+    for s in sites:
+        groups[s.name.split("/")[0]] = groups.get(s.name.split("/")[0], 0) + s.ops
+    assert len(sites) == 123 and len({s.name for s in sites}) == 123
+    assert sum(s.ops for s in sites) == pytest.approx(2.14e12, rel=2e-3)
+    assert groups["mask"] == pytest.approx(0.74e12, rel=5e-3)
+    assert groups["rpn"] == pytest.approx(0.41e12, rel=5e-3)
+    assert sum(s.ops for s in sites if s.name.startswith("bb/") and s.k == 3) == pytest.approx(0.32e12, rel=5e-3)
+    assert sum(s.ops for s in sites if s.name.startswith("fpn/p")) == pytest.approx(0.205e12, rel=5e-3)
+    fc1 = next(s for s in sites if s.name == "cls/conv1")
+    assert (fc1.m, fc1.kdim, fc1.cout, fc1.pads) == (4096, 12544, 1024, ((0, 0), (0, 0)))
+    stem = sites[0]
+    assert (stem.name, stem.cin, stem.k, stem.stride, stem.pads, stem.out_hw) == \
+        ("bb/conv1", 3, 7, 2, ((3, 3), (3, 3)), (256, 256))
+    assert [s.name for s in sites if s.name.startswith("rpn/")] == [f"rpn/shared@p{i}" for i in range(2, 7)]
+    assert set(kb.CONV_INT8_SITES) <= {s.name for s in sites}
+    # a ReLU ends every convolution but a backbone block's third 1x1, its shortcut and the FPN's
+    no_relu = {s.name for s in sites if s.name.startswith("fpn/")
+               or s.name.startswith("bb/res") and s.name.endswith(("/conv3", "/shortcut"))}
+    assert len(no_relu) == 33 + 4 + 8 and all(s.relu == (s.name not in no_relu) for s in sites)
+
+
+def test_int8_sites_are_the_sites_the_int8_stages_run():
+    """The recorded walk lists, in order and shape, the convolutions the
+    int8 stages run on a small config (custom backbone, 64^2)."""
+    from caesar_mrcnn_tpu_torch.config import detector_config
+    from caesar_mrcnn_tpu_torch.models import heads_int8 as Q
+    from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from caesar_mrcnn_tpu_torch.ops import quant
+
+    cfg = detector_config(backbone="custom", image_min_dim=64, image_max_dim=64, images_per_device=2,
+                          compute_dtype="float32")
+    model = MaskRCNN(cfg)
+    folded = Q.fold_detect(W.state_dict_to_flax(model.state_dict()), cfg)
+    ran = []
+    stages = Q.folded_stages(model, folded, observe=lambda site, x: ran.append((site, tuple(x.shape))))
+    with torch.inference_mode():
+        stages.rpn(stages.features(torch.zeros(2, 64, 64, 3)))
+        stages.classifier(torch.zeros(2, 5, 7, 7, 256))
+        stages.mask(torch.zeros(2, 3, 14, 14, 256))
+    sites = kb.int8_sites(cfg, 5, 3)
+    assert [(s.name, (s.batch, s.h, s.w, s.cin)) for s in sites] == ran
+    assert all(s.pads == quant.xla_pads(quant.pad_for(s.name), s.k, s.stride, (s.h, s.w)) for s in sites)
+
+
+def test_conv_int8_bound():
+    """The stem is bound by its f32 output, the mask head's 3x3 by its
+    operations at the int8 tensor-core rate."""
+    from caesar_mrcnn_tpu_torch.config import detector_config
+
+    sites = {s.name: s for s in kb.int8_sites(detector_config(**SERVING), 512, 100)}
+    ms, by = kb.conv_int8_bound(sites["bb/conv1"])
+    assert by == "bytes"
+    assert ms == pytest.approx((8 * 512 * 512 * 3 + 64 * 147 + 8 * 256 * 256 * 64 * 4) / 3.35e12 * 1e3)
+    ms, by = kb.conv_int8_bound(sites["mask/conv1"])
+    assert by == "operations" and ms == pytest.approx(2 * 800 * 196 * 256 * 2304 / 1979e12 * 1e3)
+    assert sum(kb.conv_int8_bound(s)[0] for s in sites.values()) > 2.14e12 / 1979e12 * 1e3
+    # a 1x1 stride-2 conv reads a quarter of its input: res3a/conv1 takes
+    # 64^2 of the 128^2 pixels, 8 * 64 * 64 * 256 int8 bytes
+    res3a = sites["bb/res3a/conv1"]
+    assert (res3a.h, res3a.cin, res3a.k, res3a.stride, res3a.out_hw, res3a.read_hw) == (128, 256, 1, 2, (64, 64), (64, 64))
+    ms, by = kb.conv_int8_bound(res3a)
+    assert by == "bytes"
+    assert ms == pytest.approx((8 * 64 * 64 * 256 + 128 * 256 + 8 * 64 * 64 * 128 * 4) / 3.35e12 * 1e3)
+    # the stem's 7x7/2 taps cover every row and column; only the six 1x1/2
+    # convs (res3a..res5a conv1 and shortcut) skip any
+    assert sites["bb/conv1"].read_hw == (512, 512)
+    assert sorted(s.name for s in sites.values() if s.read_hw != (s.h, s.w)) == \
+        [f"bb/res{i}a/{c}" for i in (3, 4, 5) for c in ("conv1", "shortcut")]
+    assert all(s.read_hw == s.out_hw for s in sites.values() if s.k == 1 and s.stride == 2)
+    ms, by = kb.quantize_bound(1000, 2)
+    assert by == "bytes" and ms == pytest.approx(3000 / 3.35e12 * 1e3)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from caesar_mrcnn_tpu_torch.ops import nms as N
+from caesar_mrcnn_tpu_torch.ops import quant as Q
 from caesar_mrcnn_tpu_torch.ops import roi_align as R
 
 pytestmark = pytest.mark.cuda
@@ -345,3 +346,78 @@ def test_crop_and_resize_kernel_rejects_what_it_does_not_take(cuda):
         R.crop_and_resize(masks, boxes.cpu(), assign, (4, 4))
     with pytest.raises(TypeError, match="int32 or int64"):
         R.crop_and_resize(masks, boxes, assign.to(torch.int16), (4, 4))
+
+
+# ------------------------------------------------------------------- int8
+
+
+@pytest.mark.parametrize(
+    "b,h,w,cin,cout,k,stride,padding",
+    [(2, 37, 30, 3, 64, 7, 2, Q.STEM_PADS), (1, 9, 9, 5, 20, 3, 1, "SAME"), (2, 16, 16, 16, 8, 1, 1, "SAME"),
+     (2, 15, 13, 48, 136, 3, 2, "SAME"), (3, 20, 20, 64, 200, 1, 2, "SAME"), (130, 7, 7, 32, 24, 7, 1, "VALID"),
+     (1, 5, 5, 80, 1, 3, 1, "SAME")],
+)
+def test_conv2d_int8_kernel_equals_plain(cuda, b, h, w, cin, cout, k, stride, padding):
+    """The int32 sums equal and the f32 epilogue bit-equal, with and without
+    ReLU, at odd sizes: Cin not a multiple of 16 (byte loads), K and M
+    tails, Cout below and across a 128 tile, a single filter."""
+    gen = torch.Generator(device=cuda).manual_seed(h * w + cin)
+    x = torch.randint(-127, 128, (b, h, w, cin), generator=gen, device=cuda, dtype=torch.int8)
+    wt = torch.randint(-127, 128, (cout, k, k, cin), generator=gen, device=cuda, dtype=torch.int8)
+    sw = torch.rand(cout, generator=gen, device=cuda) * 1e-3
+    bias = torch.rand(cout, generator=gen, device=cuda) - 0.5
+    pads = Q.xla_pads(padding, k, stride, (h, w))
+    before = Q.conv2d_int8.launches
+    acc = Q.conv2d_int8_accumulate(x, wt, stride, pads)
+    assert torch.equal(acc, Q.conv2d_int8_accumulate_plain(x, wt, stride, pads))
+    for relu in (False, True):
+        got = Q.conv2d_int8(x, wt, sw, bias, stride, pads, relu)
+        ref = Q.conv2d_int8_plain(x, wt, sw, bias, stride, pads, relu)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and torch.equal(got, ref)
+    assert Q.conv2d_int8.launches == before + 3
+
+
+def test_conv2d_int8_kernel_takes_an_unaligned_input(cuda):
+    """An input view 1 byte into its buffer runs the byte loads."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    buf = torch.randint(-127, 128, (1 + 2 * 9 * 9 * 32,), generator=gen, device=cuda, dtype=torch.int8)
+    x = buf[1:].view(2, 9, 9, 32)
+    wt = torch.randint(-127, 128, (16, 3, 3, 32), generator=gen, device=cuda, dtype=torch.int8)
+    pads = Q.xla_pads("SAME", 3, 1, (9, 9))
+    assert x.data_ptr() % 16 and torch.equal(Q.conv2d_int8_accumulate(x, wt, 1, pads),
+                                             Q.conv2d_int8_accumulate_plain(x, wt, 1, pads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", [(1, 0), (15, 0), (16, 0), (17, 0), (1000, 1), (4099, 3)])
+def test_quantize_int8_kernel_equals_plain(cuda, dtype, n, offset):
+    """Bit-equal on .5 ties, past +-127, at tails of the 16-byte vectors and
+    on inputs that are not 16-byte aligned."""
+    rng = np.random.RandomState(n)
+    vals = np.concatenate([(rng.randint(-140, 140, n) + 0.5) * 0.25, rng.uniform(-40, 40, n)]).astype(np.float32)
+    buf = torch.from_numpy(vals).to(cuda, dtype)
+    for x, s in ((buf[offset:offset + n], 0.25), (buf[n:n + n - offset], 0.0371)):
+        before = Q.quantize_int8.launches
+        got = Q.quantize_int8(x, s)
+        assert Q.quantize_int8.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, Q.quantize_int8_plain(x, s))
+
+
+def test_int8_wrappers_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 4, 4, 16, dtype=torch.int8, device=cuda)
+    wt = torch.zeros(8, 3, 3, 16, dtype=torch.int8, device=cuda)
+    sw, bias = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        Q.conv2d_int8(x.permute(0, 2, 1, 3), wt, sw, bias, 1, ((1, 1), (1, 1)))
+    with pytest.raises(TypeError, match="int8"):
+        Q.conv2d_int8(x.float(), wt, sw, bias, 1, ((1, 1), (1, 1)))
+    with pytest.raises(ValueError, match="float32"):
+        Q.conv2d_int8(x, wt, sw.double(), bias, 1, ((1, 1), (1, 1)))
+    with pytest.raises(ValueError, match="different devices"):
+        Q.conv2d_int8(x, wt, sw.cpu(), bias.cpu(), 1, ((1, 1), (1, 1)))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        Q.quantize_int8(x, 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        Q.quantize_int8(torch.zeros(4, 4, device=cuda).t(), 0.5)

@@ -20,6 +20,7 @@ import torch
 
 from caesar_mrcnn_tpu_torch.ops import _kernels
 from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
+from caesar_mrcnn_tpu_torch.ops.quant import conv2d_int8, quantize_int8
 from caesar_mrcnn_tpu_torch.ops.roi_align import crop_and_resize, roi_align, roi_align_backward
 
 torch.set_num_threads(2)
@@ -63,6 +64,9 @@ cfg = inference_config(detector_config(
 det = build_detector(cfg, seed=0, device="cpu")
 res = det.detect_tiles(np.random.RandomState(0).randint(0, 255, (1, 64, 64), np.uint8))
 assert len(res) == 1 and res[0]["masks"].shape[:2] == (64, 64)
+det8 = build_detector(cfg.replace(quant_mode="int8"), seed=0, device="cpu")
+res = det8.detect_tiles(np.random.RandomState(0).randint(0, 255, (1, 64, 64), np.uint8))
+assert len(res) == 1 and det8.qtree is not None and len(det8.qtree) == 60
 pin_heads(det.model)
 with tempfile.TemporaryDirectory() as tmp:
     path = os.path.join(tmp, "mosaic.fits")
@@ -146,8 +150,8 @@ def _run(args, cwd, env_extra=None):
 
 def test_port_imports_and_runs_without_jax_cv2_matplotlib():
     """Every module of the port and chip_smoke.py import, and the detect
-    slice and ``SFinder.run_tiled`` over a 2 x 2-tile mosaic run (the
-    catalog written), with jax, flax, optax, orbax, cv2, networkx,
+    slice (float and int8) and ``SFinder.run_tiled`` over a 2 x 2-tile
+    mosaic run (the catalog written), with jax, flax, optax, orbax, cv2, networkx,
     matplotlib, h5py and the JAX package ``caesar_mrcnn_tpu`` blocked."""
     proc = _run(["-c", BLOCK_IMPORTS + SLICE], cwd=REPO, env_extra={"PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -246,6 +250,12 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     masks = torch.zeros(2, 16, 16, 3, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         crop_and_resize(masks, boxes, torch.zeros(2, 16, dtype=torch.long, device="meta"), (4, 4))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        quantize_int8(torch.zeros(2, 8, 8, 16, device="meta"), 0.5)
+    xq = torch.zeros(2, 8, 8, 16, dtype=torch.int8, device="meta")
+    w = torch.zeros(4, 3, 3, 16, dtype=torch.int8, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        conv2d_int8(xq, w, torch.ones(4, device="meta"), torch.zeros(4, device="meta"), 1, ((1, 1), (1, 1)))
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
