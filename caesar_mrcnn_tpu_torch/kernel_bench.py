@@ -40,7 +40,7 @@ import statistics
 import subprocess
 import sys
 from pathlib import Path
-from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -65,22 +65,31 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn: Callable, reps: int, warmup: int = 1) -> float:
-    """Median device time of ``fn`` in ms, from CUDA events around each call."""
+def median_ms(fn: Callable, reps: int) -> float:
+    """Median device time of ``fn`` in ms, from CUDA events around each call
+    (after one warm-up call)."""
+    return median_ms_turns([fn], reps)[0]
+
+
+def median_ms_turns(fns: Sequence[Callable], reps: int) -> List[float]:
+    """Median device time (ms) of each of ``fns``, timed in turns (one call
+    of each per round, CUDA events around each call, after one warm-up
+    round), so that a drift of the card's clocks falls on all alike."""
     import torch
 
-    for _ in range(warmup):
+    for fn in fns:
         fn()
-    times = []
+    times: List[List[float]] = [[] for _ in fns]
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        for fn, t in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            t.append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
 
 
 def device_split(fn: Callable, reps: int) -> Dict[str, Tuple[float, float]]:
@@ -111,7 +120,8 @@ def device_split(fn: Callable, reps: int) -> Dict[str, Tuple[float, float]]:
 # The port's kernels (``csrc/*.cu``); every other device op of a call is
 # its wrapper's (casts, zeros, the sort).
 OWN_KERNELS = ("nms_mask_kernel", "nms_sweep_kernel", "roi_align_kernel", "roi_align_backward_kernel",
-               "crop_and_resize_kernel", "conv_int8_kernel", "quantize_int8_kernel")
+               "crop_and_resize_kernel", "conv_int8_kernel", "conv_int8_wgmma_kernel", "quantize_int8_kernel",
+               "quantize_int8_pad_kernel")
 
 
 def own_kernels(split: Dict[str, Tuple[float, float]]) -> Tuple[float, float, float]:
@@ -322,8 +332,12 @@ def crop_and_resize_bound(mask_shape: Sequence[int], boxes, assign, crop_size: T
 class ConvSite(NamedTuple):
     """One int8 convolution of the detect graph: its site, NHWC input
     [batch, h, w, cin], ``cout`` filters of ``k`` x ``k`` at ``stride``,
-    XLA's ``pads`` ((top, bottom), (left, right)), and whether a ReLU ends
-    it."""
+    XLA's ``pads`` ((top, bottom), (left, right)), whether a ReLU ends it,
+    ``then``, the one quantized convolution that reads its output, where
+    there is one (the output then leaves int8, quantized in the
+    epilogue), and ``in_bytes``, the bytes per value of the float input the
+    graph hands it (4 f32, 2 bf16), which its quantizer reads where no
+    producer requantized for it."""
 
     name: str
     batch: int
@@ -335,6 +349,8 @@ class ConvSite(NamedTuple):
     stride: int
     pads: tuple
     relu: bool = False
+    then: Optional[str] = None
+    in_bytes: int = 4
 
     @property
     def out_hw(self) -> Tuple[int, int]:
@@ -371,12 +387,13 @@ def int8_sites(cfg, rois: int, detections: int) -> List[ConvSite]:
     with ``rois`` proposals (the classifier's input) and ``detections``
     (the mask head's) per image: the int8 stages' own topology
     (``heads_int8.DetectStages``), walked on shape-only tensors (PyTorch's
-    meta device) with a conv that records each site."""
+    meta device) in the model's compute dtype, with a conv that records
+    each site."""
     import torch
     from torch import nn
 
     from .models.heads_int8 import DetectStages, site_module
-    from .models.mask_rcnn import MaskRCNN
+    from .models.mask_rcnn import MaskRCNN, compute_dtype
     from .ops.quant import out_size, pad_for, xla_pads
 
     sites: List[ConvSite] = []
@@ -384,45 +401,63 @@ def int8_sites(cfg, rois: int, detections: int) -> List[ConvSite]:
         model = MaskRCNN(cfg)
 
     class Recorder(nn.Module):
-        def forward(self, site, x, stride=1, relu=False):
+        def forward(self, site, x, stride=1, relu=False, then=None):
             cout, cin, k, _ = site_module(model, site).weight.shape
             b, h, w, c = x.shape
             pads = xla_pads(pad_for(site), k, stride, (h, w))
-            sites.append(ConvSite(site, b, h, w, c, cout, k, stride, pads, relu))
+            sites.append(ConvSite(site, b, h, w, c, cout, k, stride, pads, relu, then, x.element_size()))
             return x.new_empty((b, *out_size((h, w), k, stride, pads), cout), dtype=torch.float32)
 
-    stages = DetectStages(model, Recorder(), torch.float32)
+    dtype = compute_dtype(cfg)
+    stages = DetectStages(model, Recorder(), dtype)
     h, w, c = cfg.image_shape
     b, ch = cfg.batch_size, cfg.top_down_pyramid_size
-    with torch.device("meta"):
+    with torch.device("meta"):  # the heads take ROIAlign's output in the compute dtype
         stages.rpn(stages.features(torch.empty(b, h, w, c)))
-        stages.classifier(torch.empty(b, rois, cfg.pool_size, cfg.pool_size, ch))
-        stages.mask(torch.empty(b, detections, cfg.mask_pool_size, cfg.mask_pool_size, ch))
+        stages.classifier(torch.empty(b, rois, cfg.pool_size, cfg.pool_size, ch, dtype=dtype))
+        stages.mask(torch.empty(b, detections, cfg.mask_pool_size, cfg.mask_pool_size, ch, dtype=dtype))
     return sites
 
 
 # the serving flagship's sites that chip_smoke.py checks and times: the stem
-# (byte loads), a 1x1/2, a 3x3, a 1x1 at K = 2048, the RPN's largest level,
-# fc1 (K = 12,544) and the mask head's first 3x3
+# (K = 147, 784 with its channels padded to 16), a 1x1/2, a 3x3, a 1x1 at
+# K = 2048 (split-K), the RPN's largest level, fc1 (K = 12,544) and the mask
+# head's first 3x3; and one site that requantizes for the next
+# (bb/res4b/conv1 -> bb/res4b/conv2)
 CONV_INT8_SITES = ("bb/conv1", "bb/res3a/conv1", "bb/res4b/conv2", "fpn/c5p5", "rpn/shared@p2", "cls/conv1",
                    "mask/conv1")
+CONV_INT8_FUSED_SITE = "bb/res4b/conv1"
 
 
 def conv_int8_bound(site: ConvSite) -> Tuple[float, str]:
     """The int8 input the taps touch (:attr:`ConvSite.read_hw`) and the
-    weights read once and the f32 output written once over the memory rate,
-    against the int8 operations over the dense int8 tensor-core rate; the
-    larger, in ms."""
+    weights read once and the output written once (f32, or int8 where the
+    site requantizes for ``then``) over the memory rate, against the int8
+    operations over the dense int8 tensor-core rate; the larger, in ms.
+    ``site._replace(then=None)`` gives the unfused graph's bound."""
     rows, cols = site.read_hw
-    nbytes = site.batch * rows * cols * site.cin + site.cout * site.kdim + site.m * site.cout * 4
+    out_bytes = 1 if site.then else 4
+    nbytes = site.batch * rows * cols * site.cin + site.cout * site.kdim + site.m * site.cout * out_bytes
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, site.ops / PEAK_INT8_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def quantize_bound(n: int, itemsize: int) -> Tuple[float, str]:
-    """n values of ``itemsize`` bytes read and n int8 written; a division,
-    a rounding and two clamps per value in f32."""
-    return _bound(n * (itemsize + 1), n * 4)
+def quantize_bound(n: int, itemsize: int, n_out: Optional[int] = None) -> Tuple[float, str]:
+    """n values of ``itemsize`` bytes read and ``n_out`` int8 written (n,
+    or more where the quantizer pads channels with zeros); a division, a
+    rounding and two clamps per value read, in f32."""
+    return _bound(n * itemsize + (n if n_out is None else n_out), n * 4)
+
+
+def input_quantize_bound(site: ConvSite) -> Tuple[float, str]:
+    """The bound of the quantizer pass in front of ``site``, where no
+    producer requantized for it: its float input read at ``in_bytes``, and
+    int8 written with the channels padded to the Hopper route's multiple of
+    16 (the stem's 3 to 16)."""
+    from .ops.quant import padded_channels
+
+    pixels = site.batch * site.h * site.w
+    return quantize_bound(pixels * site.cin, site.in_bytes, pixels * padded_channels(site.cin))
 
 
 # --------------------------------------------------------------- the script

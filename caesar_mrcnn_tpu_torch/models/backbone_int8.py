@@ -6,7 +6,12 @@ weights, per-tensor symmetric int8 activations with scales calibrated by
 max-abs, and convolutions that accumulate in int32 (``ops/quant.py``: the
 kernels of ``csrc/conv_int8.cu`` on the card). The topology is one walk,
 :func:`walk_resnet`, run by both the f32 folded forward (calibration, fold
-tests) and the int8 forward, with a pluggable conv.
+tests) and the int8 forward, with a pluggable conv. The walk names, at each
+conv whose output one quantized conv alone reads, that consumer
+(``then=``): the int8 convs then quantize for it in the producer's
+epilogue, as XLA fuses the quantizer into the conv before it in the JAX
+package (``caesar_mrcnn_tpu/models/backbone_int8.py:263-267``); the f32
+convs ignore it.
 
 Folding and quantization are numpy on the JAX package's tree shape (a
 ``weights.state_dict_to_flax`` of the port's model), so the folded and
@@ -31,15 +36,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.quant import conv2d_int8, pad_for, quantize_int8, xla_pads
+from ..ops.quant import conv2d_int8, pad_for, padded_channels, quantize_int8, xla_pads
 from .backbone import BLOCK_COUNTS, max_pool_same
 from .layers import BN_EPS
 
 # conv slot -> FrozenableBatchNorm child index inside a flax Bottleneck
 _BN_INDEX = {"conv1": 0, "conv2": 1, "conv3": 2, "shortcut": 3}
 
-# conv(site, x NHWC, stride, relu) -> f32 NHWC, the post-BN linear output
-# (ReLU applied when asked)
+# conv(site, x NHWC, stride, relu, then) -> f32 NHWC, the post-BN linear
+# output (ReLU applied when asked); ``then`` names the one conv that reads
+# it, for which an int8 conv may return it quantized (int8 NHWC)
 Conv = Callable[..., torch.Tensor]
 
 
@@ -59,15 +65,16 @@ def walk_resnet(x: torch.Tensor, conv: Conv, architecture: str) -> Tuple[torch.T
     """The ResNet topology over a pluggable conv, on NHWC ``x``: the 7x7/2
     stem with its explicit 3-pad and ReLU, the 3x3/2 SAME max pool, then
     every bottleneck with its f32 residual sum. Conv names: ``conv1`` for
-    the stem, ``<block>/conv{1,2,3}`` and ``<block>/shortcut``. Returns
-    (C2, C3, C4, C5), NHWC."""
+    the stem, ``<block>/conv{1,2,3}`` and ``<block>/shortcut``; each
+    block's conv1 and conv2 name their consumer (``then``). Returns (C2,
+    C3, C4, C5), NHWC."""
     x = conv("conv1", x, 2, relu=True)
     x = max_pool_same(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
     outs = []
     for blocks in stage_blocks(architecture):
         for name, project, stride in blocks:
-            y = conv(f"{name}/conv1", x, stride, relu=True)
-            y = conv(f"{name}/conv2", y, 1, relu=True)
+            y = conv(f"{name}/conv1", x, stride, relu=True, then=f"{name}/conv2")
+            y = conv(f"{name}/conv2", y, 1, relu=True, then=f"{name}/conv3")
             y = conv(f"{name}/conv3", y, 1)
             sc = conv(f"{name}/shortcut", x, stride) if project else x
             x = y.add_(sc).relu_()  # y is the conv's fresh output
@@ -140,7 +147,8 @@ class _Site(nn.Module):
 class FoldedConvs(nn.Module):
     """f32 convs on folded weights: ``folded`` {site: (w HWIO, b)} numpy.
     Sites may carry an ``@level`` suffix (one weight, several inputs);
-    ``observe(site, x)`` sees every conv input (calibration)."""
+    ``observe(site, x)`` sees every conv input (calibration). ``then`` is
+    ignored: every output stays f32, so calibration sees the f32 inputs."""
 
     def __init__(self, folded: Dict[str, Tuple[np.ndarray, np.ndarray]], observe=None):
         super().__init__()
@@ -151,7 +159,8 @@ class FoldedConvs(nn.Module):
             for site, (w, b) in folded.items()
         })
 
-    def forward(self, site: str, x: torch.Tensor, stride: int = 1, relu: bool = False) -> torch.Tensor:
+    def forward(self, site: str, x: torch.Tensor, stride: int = 1, relu: bool = False,
+                then: Optional[str] = None) -> torch.Tensor:
         if self.observe is not None:
             self.observe(site, x)
         q = self.sites[site.split("@")[0]]
@@ -162,23 +171,41 @@ class FoldedConvs(nn.Module):
         return (torch.relu(y) if relu else y).contiguous()
 
 
+def pad_input_channels(w: torch.Tensor) -> torch.Tensor:
+    """Packed int8 weights [Cout, k, k, Cin] with zero input channels up
+    to a multiple of 16 (the stem's 3 to 16): the int32 sums do not
+    change, and the conv takes the card's Hopper route."""
+    c = w.shape[3]
+    return w if c % 16 == 0 else F.pad(w, (0, padded_channels(c) - c)).contiguous()
+
+
 class Int8Convs(nn.Module):
     """int8 convs on a quantized tree in the port's layout
-    (``weights.qtree_to_torch``): each input quantized by its site's
-    ``s_in`` (:func:`~..ops.quant.quantize_int8`), then
-    :func:`~..ops.quant.conv2d_int8` with the per-channel epilogue. Inputs
-    are contiguous NHWC, f32 or bf16."""
+    (``weights.qtree_to_torch``): each f32 or bf16 input quantized by its
+    site's ``s_in`` (:func:`~..ops.quant.quantize_int8`; where Cin is not a
+    multiple of 16, the stem's 3, with its channels padded to match weights
+    padded once here), then :func:`~..ops.quant.conv2d_int8` with the
+    per-channel epilogue. Given ``then``, the output comes back int8 at
+    that site's ``s_in`` (the quantizer in the epilogue), and that site
+    takes it as it is. Inputs are contiguous NHWC."""
 
     def __init__(self, qtree: Dict[str, Dict]):
         super().__init__()
         self.sites = nn.ModuleDict({site: _Site(w=q["w"], sw=q["sw"], b=q["b"]) for site, q in qtree.items()})
+        self.padded = nn.ModuleDict({site: _Site(w=pad_input_channels(q["w"]))
+                                     for site, q in qtree.items() if q["w"].shape[3] % 16})
         self.s_in = {site: float(q["s_in"]) for site, q in qtree.items()}
 
-    def forward(self, site: str, x: torch.Tensor, stride: int = 1, relu: bool = False) -> torch.Tensor:
+    def forward(self, site: str, x: torch.Tensor, stride: int = 1, relu: bool = False,
+                then: Optional[str] = None) -> torch.Tensor:
         q = self.sites[site]
-        xq = quantize_int8(x, self.s_in[site])
-        pads = xla_pads(pad_for(site), q.w.shape[1], stride, tuple(x.shape[1:3]))
-        return conv2d_int8(xq, q.w, q.sw, q.b, stride, pads, relu)
+        if x.dtype == torch.int8:  # quantized for this site by the conv before it
+            xq, w = x, q.w
+        else:
+            w = self.padded[site].w if site in self.padded else q.w
+            xq = quantize_int8(x, self.s_in[site], channels=w.shape[3])
+        pads = xla_pads(pad_for(site), w.shape[1], stride, tuple(x.shape[1:3]))
+        return conv2d_int8(xq, w, q.sw, q.b, stride, pads, relu, None if then is None else self.s_in[then])
 
 
 # ------------------------------------------------------------ forward passes

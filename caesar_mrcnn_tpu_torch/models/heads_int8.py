@@ -90,9 +90,13 @@ def quantize_detect(folded, act_scales: Dict[str, float]) -> Dict[str, Dict[str,
 
 class DetectStages(nn.Module):
     """The detect graph's four trainable stages over pluggable conv
-    arithmetic ``convs(site, x NHWC, stride, relu)`` (f32 NHWC out), the
-    other layers taken from ``model`` and run in ``dtype``. The backbone's
-    residual stream and the FPN are f32; the pyramid leaves in ``dtype``."""
+    arithmetic ``convs(site, x NHWC, stride, relu, then=)`` (f32 NHWC out;
+    ``then`` names the one quantized conv that reads the output, the
+    backbone's conv1 -> conv2 -> conv3 of each block, the classifier's
+    conv1 -> conv2 and the mask head's stack: 70 sites at ResNet-101, whose
+    int8 convs quantize in their epilogue), the other layers taken from
+    ``model`` and run in ``dtype``. The backbone's residual stream and the
+    FPN are f32; the pyramid leaves in ``dtype``."""
 
     def __init__(self, model: nn.Module, convs: nn.Module, dtype: torch.dtype):
         super().__init__()
@@ -105,8 +109,8 @@ class DetectStages(nn.Module):
 
     def features(self, images: torch.Tensor):
         """images NHWC [B, H, W, C] -> (P2, ..., P6), NCHW channels_last."""
-        def bb(name, x, stride, relu=False):
-            return self.convs(f"bb/{name}", x, stride, relu)
+        def bb(name, x, stride, relu=False, then=None):
+            return self.convs(f"bb/{name}", x, stride, relu, then=then and f"bb/{then}")
 
         c2, c3, c4, c5 = walk_resnet(images.float().contiguous(), bb, self.config.backbone)
         conv = self.convs
@@ -136,7 +140,7 @@ class DetectStages(nn.Module):
     def classifier(self, pooled: torch.Tensor):
         """pooled [B, R, p, p, C] -> (logits, probs [B, R, K], deltas [B, R, K, 4])."""
         b, r = pooled.shape[:2]
-        x = self.convs("cls/conv1", pooled.flatten(0, 1), relu=True)  # the VALID pool-window conv = fc1
+        x = self.convs("cls/conv1", pooled.flatten(0, 1), relu=True, then="cls/conv2")  # the VALID conv = fc1
         x = self.convs("cls/conv2", x, relu=True)
         logits, probs, deltas = self.classifier_head.outputs(x.flatten(1).to(self.dtype))
         k = self.config.num_classes
@@ -147,7 +151,7 @@ class DetectStages(nn.Module):
         b, r = pooled.shape[:2]
         x = pooled.flatten(0, 1)
         for i in range(1, 5):
-            x = self.convs(f"mask/conv{i}", x, relu=True)
+            x = self.convs(f"mask/conv{i}", x, relu=True, then=f"mask/conv{i + 1}" if i < 4 else None)
         m = self.mask_head.upsample(x.to(self.dtype).permute(0, 3, 1, 2))
         return m.reshape((b, r) + m.shape[1:])
 

@@ -101,10 +101,16 @@ def library() -> ctypes.CDLL:
     lib.caesar_roi_align_backward.restype = _I
     lib.caesar_crop_and_resize.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
     lib.caesar_crop_and_resize.restype = _I
-    lib.caesar_conv2d_int8.argtypes = [_P] * 5 + [_I] * 14 + [_P]
+    lib.caesar_conv2d_int8.argtypes = [_P] * 5 + [_I] * 13 + [_F, _I, _P]
     lib.caesar_conv2d_int8.restype = _I
+    lib.caesar_conv2d_int8_wgmma.argtypes = [_P] * 7 + [_I] * 13 + [_F, _I, _I, _I, _P]
+    lib.caesar_conv2d_int8_wgmma.restype = _I
+    lib.caesar_conv_int8_weight_map.argtypes = [_P, _P, _I, _I, _I]
+    lib.caesar_conv_int8_weight_map.restype = _I
     lib.caesar_quantize_int8.argtypes = [_P, _P, ctypes.c_longlong, _I, _F, _P]
     lib.caesar_quantize_int8.restype = _I
+    lib.caesar_quantize_int8_pad.argtypes = [_P, _P, ctypes.c_longlong, _I, _I, _I, _F, _P]
+    lib.caesar_quantize_int8_pad.restype = _I
     return lib
 
 

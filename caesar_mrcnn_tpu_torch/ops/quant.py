@@ -11,19 +11,29 @@ Port of the convolution closures of the JAX package's int8 serving graph,
 * :func:`conv2d_int8` is the int32 accumulation of an NHWC int8 input
   against per-output-channel int8 weights, ``lax.conv_general_dilated(...,
   preferred_element_type=int32)``, followed by the f32 epilogue ``acc *
-  sw + b`` (a product, then a sum, each rounded) and an optional ReLU.
+  sw + b`` (a product, then a sum, each rounded) and an optional ReLU;
+  given the next site's scale ``s_next``, it also applies that site's
+  quantizer and returns int8 (what XLA fuses into the convolution,
+  ``backbone_int8.py:263-267``).
 
 Weights are packed ``[Cout, kh, kw, Cin]`` int8 (the reduction runs over
 ``(ky, kx, ci)`` in that order); activations are NHWC, contiguous: a
 channels_last NCHW tensor is one ``permute(0, 2, 3, 1)`` away, without a
 copy. :func:`xla_pads` and :func:`pad_for` give XLA's padding of every
 site. CUDA tensors run ``csrc/conv_int8.cu`` (each launch counted on the
-wrapper), CPU tensors the plain versions; nothing falls back.
+wrapper), CPU tensors the plain versions; nothing falls back. The
+convolution has two routes, chosen by shape before the launch
+(:func:`conv_plan`): the Hopper kernel (wgmma, a TMA and cp.async ring,
+split-K) where 16 divides Cin and the tensors are 16-byte aligned, the
+``mma.sync`` kernel for every other shape; each route counts its
+launches in ``conv2d_int8.route_launches``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -85,31 +95,47 @@ def quantize_int8_plain(x: torch.Tensor, s_in: float) -> torch.Tensor:
 _QUANT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def quantize_int8(x: torch.Tensor, s_in: float) -> torch.Tensor:
+def quantize_int8(x: torch.Tensor, s_in: float, channels: Optional[int] = None) -> torch.Tensor:
     """Per-tensor int8 quantization of a contiguous f32 or bf16 tensor;
-    ``s_in`` is the f32 scale. CUDA tensors run the kernel of
+    ``s_in`` is the f32 scale. ``channels`` (a multiple of 16, at least the
+    last dimension) pads the last dimension with zeros: the stem's NHWC
+    image leaves with 16 channels. CUDA tensors run a kernel of
     ``csrc/conv_int8.cu`` (one launch, counted in
     ``quantize_int8.launches``); CPU tensors the plain version."""
     if x.dtype not in _QUANT_DTYPES:
         raise TypeError(f"quantize_int8 takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("quantize_int8 takes a contiguous tensor")
+    c = x.shape[-1] if x.dim() else 1
+    pad = channels is not None and channels != c
+    if pad and (channels % 16 or channels < c or x.dim() == 0):
+        raise ValueError(f"quantize_int8 pads {c} channels to a multiple of 16 at least as large, not {channels}")
     if x.device.type == "cpu":
-        return quantize_int8_plain(x, s_in)
+        q = quantize_int8_plain(x, s_in)
+        return F.pad(q, (0, channels - c)) if pad else q
     if x.device.type != "cuda":
         raise RuntimeError(f"quantize_int8: no kernel for device {x.device}")
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    q = torch.empty(x.shape[:-1] + (channels,) if pad else x.shape, dtype=torch.int8, device=x.device)
     if x.numel():
-        status = _kernels.library().caesar_quantize_int8(
-            x.data_ptr(), q.data_ptr(), x.numel(), _QUANT_DTYPES[x.dtype], float(s_in),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        lib = _kernels.library()
+        if pad:
+            status = lib.caesar_quantize_int8_pad(x.data_ptr(), q.data_ptr(), x.numel() // c, c, channels,
+                                                  _QUANT_DTYPES[x.dtype], float(s_in), stream)
+        else:
+            status = lib.caesar_quantize_int8(x.data_ptr(), q.data_ptr(), x.numel(), _QUANT_DTYPES[x.dtype],
+                                              float(s_in), stream)
         _kernels.check(status, "caesar_quantize_int8")
         quantize_int8.launches += 1
     return q
 
 
 quantize_int8.launches = 0
+
+
+def padded_channels(c: int) -> int:
+    """Input channels as the Hopper route takes them: a multiple of 16."""
+    return -(-c // 16) * 16
 
 
 # -------------------------------------------------------------- convolution
@@ -146,58 +172,192 @@ def conv2d_int8_accumulate_plain(xq: torch.Tensor, w: torch.Tensor, stride: int,
     return torch.round(acc).to(torch.int32).permute(0, 2, 3, 1).contiguous()
 
 
-def conv2d_int8_plain(xq, w, sw, b, stride: int, pads: Pads, relu: bool = False) -> torch.Tensor:
+def conv2d_int8_plain(xq, w, sw, b, stride: int, pads: Pads, relu: bool = False,
+                      s_next: Optional[float] = None) -> torch.Tensor:
     """The plain version of :func:`conv2d_int8` (any device): the int32
     sums, then ``acc * sw + b`` in f32, a product and then a sum (each
-    rounded), and an optional ReLU."""
+    rounded), and an optional ReLU; with ``s_next``, that value through
+    :func:`quantize_int8_plain`."""
     y = conv2d_int8_accumulate_plain(xq, w, stride, pads).float() * sw + b
-    return torch.relu(y) if relu else y
+    y = torch.relu(y) if relu else y
+    return y if s_next is None else quantize_int8_plain(y, s_next)
 
 
-def _conv_cuda(xq, w, sw, b, stride, pads, relu, ho, wo, raw: bool):
+# ------------------------------------------------------------------ routes
+
+SMS = 132  # streaming multiprocessors of an H100 SXM: the plan's default card
+TILE_M, TILE_K = 128, 128  # the Hopper kernel's rows per block and bytes of K per stage (hop::kBM, hop::kBK)
+TILE_N = (64, 128, 256)
+MAX_SPLITS = 8
+_MODES = {"raw": 0, "f32": 1, "q8": 2}
+_OUT_DTYPES = {"raw": torch.int32, "f32": torch.float32, "q8": torch.int8}
+
+
+class ConvPlan(NamedTuple):
+    """How one convolution runs on the card: ``route`` "wgmma" (the Hopper
+    kernel, ``bn`` output channels per block, K split ``splits`` ways) or
+    "mma" (the ``mma.sync`` kernel: 128 x 128 tiles, no split)."""
+
+    route: str
+    bn: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=4096)
+def _tiles(m: int, n: int, kdim: int, sms: int) -> Tuple[int, int]:
+    """(bn, splits) of the Hopper kernel for an M x N x K product: the pair
+    with the fewest waves of blocks over the card's ``sms`` SMs, each wave
+    costing its blocks' stages of K (a stage's time taken as bn + 64, the
+    B tile plus the fixed A tile and latency) and its epilogue (three times
+    as long with a split: the partial tiles written and read back). A split
+    only where each share keeps at least two stages; fewer splits and wider
+    tiles win ties."""
+    nk = -(-kdim // TILE_K)
+    mt = -(-m // TILE_M)
+    best = None
+    for bn in TILE_N:
+        if bn > 64 and n <= bn // 2:
+            continue  # a tile at most twice the channels
+        tiles = mt * -(-n // bn)
+        for splits in range(1, MAX_SPLITS + 1):
+            kps = -(-nk // splits)
+            if -(-nk // kps) != splits or (splits > 1 and kps < 2):
+                continue
+            waves = -(-tiles * splits // sms)
+            cost = waves * (kps + (3 if splits > 1 else 1)) * (bn + 64)
+            key = (cost, splits, -bn)
+            if best is None or key < best[0]:
+                best = (key, bn, splits)
+    return best[1], best[2]
+
+
+def conv_plan(m: int, n: int, kdim: int, cin: int, aligned: bool = True, sms: int = SMS) -> ConvPlan:
+    """The route, tile width and split of one convolution, from its shape
+    and the card's ``sms``: the Hopper kernel where 16 divides ``cin`` and
+    the input and weights are 16-byte ``aligned``, the ``mma.sync`` kernel
+    otherwise."""
+    if cin % 16 or not aligned:
+        return ConvPlan("mma", 128, 1)
+    return ConvPlan("wgmma", *_tiles(m, n, kdim, sms))
+
+
+_WEIGHT_MAPS: Dict[tuple, ctypes.Array] = {}
+_SPLIT_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def _weight_map(w: torch.Tensor, kdim: int, cout: int, bn: int) -> ctypes.Array:
+    """The TMA descriptor of packed weights, encoded once per (device,
+    address, shape, tile): it holds no data, so it stays right for any
+    tensor at that address."""
+    key = (w.device.index, w.data_ptr(), kdim, cout, bn)
+    tmap = _WEIGHT_MAPS.get(key)
+    if tmap is None:
+        if len(_WEIGHT_MAPS) > 4096:
+            _WEIGHT_MAPS.clear()
+        tmap = ctypes.create_string_buffer(128)
+        _kernels.check(_kernels.library().caesar_conv_int8_weight_map(tmap, w.data_ptr(), kdim, cout, bn),
+                       "caesar_conv_int8_weight_map")
+        _WEIGHT_MAPS[key] = tmap
+    return tmap
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The card's SMs: the Hopper kernel's persistent blocks."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _split_counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    """Zeroed split-K counters, one per output tile, per device and stream
+    (each launch leaves them zeroed, and launches on one stream run in
+    order)."""
+    key = (device.index, stream)
+    t = _SPLIT_COUNTERS.get(key)
+    if t is None or t.numel() < tiles:
+        t = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
+        _SPLIT_COUNTERS[key] = t
+    return t
+
+
+def _conv_cuda(xq, w, sw, b, stride, pads, relu, ho, wo, mode: str, s_next, route: Optional[str]):
     bsz, h, wd, c = xq.shape
     cout, k = w.shape[0], w.shape[1]
-    out = torch.empty((bsz, ho, wo, cout), dtype=torch.int32 if raw else torch.float32, device=xq.device)
-    # 16-byte loads of the input and the weights where every (ky, kx) tap is
-    # whole 16-byte chunks; byte loads otherwise (the stem, Cin = 3)
-    vec = c % 16 == 0 and xq.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    status = _kernels.library().caesar_conv2d_int8(
-        xq.data_ptr(), w.data_ptr(), 0 if raw else sw.data_ptr(), 0 if raw else b.data_ptr(),
-        out.data_ptr(), bsz, h, wd, c, ho, wo, cout, k, stride, pads[0][0], pads[1][0],
-        int(relu), int(raw), int(vec), torch.cuda.current_stream(xq.device).cuda_stream,
-    )
-    _kernels.check(status, "caesar_conv2d_int8")
+    m, kdim = bsz * ho * wo, k * k * c
+    aligned = xq.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    sms = _sm_count(xq.device)
+    plan = conv_plan(m, cout, kdim, c, aligned, sms)
+    if route == "mma":
+        plan = ConvPlan("mma", 128, 1)
+    elif route not in (None, plan.route):
+        raise ValueError(f"conv2d_int8: the {route} route takes 16 | Cin and 16-byte aligned tensors "
+                         f"(Cin {c}, aligned {aligned})")
+    out = torch.empty((bsz, ho, wo, cout), dtype=_OUT_DTYPES[mode], device=xq.device)
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    lib = _kernels.library()
+    sw_p, b_p = (0, 0) if mode == "raw" else (sw.data_ptr(), b.data_ptr())
+    s = 0.0 if s_next is None else float(s_next)
+    if plan.route == "wgmma":
+        tmap = _weight_map(w, kdim, cout, plan.bn)
+        ws = counters = None
+        if plan.splits > 1:
+            tiles = -(-m // TILE_M) * -(-cout // plan.bn)
+            ws = torch.empty(plan.splits * tiles * TILE_M * plan.bn, dtype=torch.int32, device=xq.device)
+            counters = _split_counters(xq.device, stream, tiles)
+        status = lib.caesar_conv2d_int8_wgmma(
+            xq.data_ptr(), tmap, sw_p, b_p, out.data_ptr(), 0 if ws is None else ws.data_ptr(),
+            0 if counters is None else counters.data_ptr(), bsz, h, wd, c, ho, wo, cout, k, stride, pads[0][0],
+            pads[1][0], int(relu), _MODES[mode], s, plan.bn, plan.splits, sms, stream,
+        )
+        _kernels.check(status, "caesar_conv2d_int8_wgmma")
+    else:
+        # 16-byte loads where every (ky, kx) tap is whole 16-byte chunks;
+        # byte loads otherwise (Cin not a multiple of 16, unaligned tensors)
+        vec = c % 16 == 0 and aligned
+        status = lib.caesar_conv2d_int8(
+            xq.data_ptr(), w.data_ptr(), sw_p, b_p, out.data_ptr(), bsz, h, wd, c, ho, wo, cout, k, stride,
+            pads[0][0], pads[1][0], int(relu), _MODES[mode], s, int(vec), stream,
+        )
+        _kernels.check(status, "caesar_conv2d_int8")
     conv2d_int8.launches += 1
+    conv2d_int8.route_launches[plan.route] += 1
     return out
 
 
-def conv2d_int8(xq, w, sw, b, stride: int, pads: Pads, relu: bool = False) -> torch.Tensor:
+def conv2d_int8(xq, w, sw, b, stride: int, pads: Pads, relu: bool = False, s_next: Optional[float] = None,
+                route: Optional[str] = None) -> torch.Tensor:
     """int8 convolution with the f32 epilogue: NHWC int8 ``xq`` [B, H, W,
     Cin] against packed int8 ``w`` [Cout, k, k, Cin], then ``acc * sw[n] +
     b[n]`` (``sw``, ``b``: f32 [Cout]) and an optional ReLU, f32 NHWC [B,
-    Ho, Wo, Cout]. ``pads`` is ((top, bottom), (left, right)), from
-    :func:`xla_pads`. CUDA tensors run the implicit-GEMM kernel of
-    ``csrc/conv_int8.cu`` (one launch, counted in ``conv2d_int8.launches``);
-    CPU tensors the plain version."""
+    Ho, Wo, Cout]; with ``s_next`` (the scale of the one convolution that
+    reads this output) that value quantized at ``s_next``, int8 NHWC.
+    ``pads`` is ((top, bottom), (left, right)), from :func:`xla_pads`.
+    CUDA tensors run a kernel of ``csrc/conv_int8.cu`` on the route
+    :func:`conv_plan` picks (``route`` "mma" forces the ``mma.sync`` kernel; "wgmma"
+    raises where the Hopper kernel does not take the shape), one launch,
+    counted in ``conv2d_int8.launches`` and ``.route_launches``; CPU
+    tensors the plain version."""
     ho, wo = _check_conv(xq, w, stride, pads, sw, b)
     if xq.device.type == "cpu":
-        return conv2d_int8_plain(xq, w, sw, b, stride, pads, relu)
+        return conv2d_int8_plain(xq, w, sw, b, stride, pads, relu, s_next)
     if xq.device.type != "cuda":
         raise RuntimeError(f"conv2d_int8: no kernel for device {xq.device}")
-    return _conv_cuda(xq, w, sw, b, stride, pads, relu, ho, wo, raw=False)
+    mode = "f32" if s_next is None else "q8"
+    return _conv_cuda(xq, w, sw, b, stride, pads, relu, ho, wo, mode, s_next, route)
 
 
 conv2d_int8.launches = 0
+conv2d_int8.route_launches = {"wgmma": 0, "mma": 0}
 
 
-def conv2d_int8_accumulate(xq: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads) -> torch.Tensor:
+def conv2d_int8_accumulate(xq: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
+                           route: Optional[str] = None) -> torch.Tensor:
     """The int32 sums alone, NHWC [B, Ho, Wo, Cout]: the kernel of
-    :func:`conv2d_int8` with its epilogue off on CUDA tensors (counted in
-    ``conv2d_int8.launches``), the plain sums on CPU tensors. The checks on
-    the card compare these; the detect graph calls :func:`conv2d_int8`."""
+    :func:`conv2d_int8` with its epilogue off on CUDA tensors (counted as
+    it counts), the plain sums on CPU tensors. The checks on the card
+    compare these; the detect graph calls :func:`conv2d_int8`."""
     ho, wo = _check_conv(xq, w, stride, pads)
     if xq.device.type == "cpu":
         return conv2d_int8_accumulate_plain(xq, w, stride, pads)
     if xq.device.type != "cuda":
         raise RuntimeError(f"conv2d_int8: no kernel for device {xq.device}")
-    return _conv_cuda(xq, w, None, None, stride, pads, False, ho, wo, raw=True)
+    return _conv_cuda(xq, w, None, None, stride, pads, False, ho, wo, "raw", None, route)

@@ -18,8 +18,11 @@ Phases, one line each:
    run's data: NMS's IoU tests, the level pixels and mask sectors the
    ROIAlign forward's and the crop's taps touch; int8 operations over
    1,979 TOPS for the int8 convolution) and the roofline share; the int8
-   convolution at seven sites of the serving flagship (int32 sums equal,
-   f32 outputs bit-equal) and the quantizer (bit-equal, on .5 ties too);
+   convolution at seven sites of the serving flagship and at one that
+   requantizes for the next, on both routes (the Hopper kernel and the mma.sync one:
+   int32 sums equal, f32 outputs and the requantized int8 bit-equal), timed
+   in turns beside ``torch._int_mm`` and cuDNN's bf16 conv, and the
+   quantizer (bit-equal, on .5 ties too);
 4. slice: the tiled detect path (``Detector.dispatch_tiles`` / ``collect``,
    two batches in flight) over 16 tiles of 512^2 read from a seeded 2048^2
    FITS mosaic, at the flagship's full width (ResNet-101, FPN 256, batch 8,
@@ -54,8 +57,10 @@ Phases, one line each:
    flagship's width (ResNet-101, FPN 256, batch 8, bf16), on the 16 tiles
    of the seeded 2048^2 mosaic through ``dispatch_tiles``/``collect``, two
    batches in flight: the first batch calibrates it (wall time); launches
-   (123 ``conv2d_int8`` and 123 ``quantize_int8`` per batch, 2 NMS and 2
-   ROIAlign per batch and 2 of each for the calibration); a timed third
+   (123 ``conv2d_int8`` per batch, every one on the Hopper route, and 53
+   ``quantize_int8``: the other 70 quantizers run in convolution
+   epilogues; 2 NMS and 2 ROIAlign per batch and 2 of each for the
+   calibration); a timed third
    pass (img/s); the int8 detect step beside the bf16 graph's on the same
    weights and tiles (CUDA events), its device time by kernel (profiler);
    peak memory; the int8 pyramid's relative L2 error against the folded
@@ -399,66 +404,109 @@ def serving_config(**overrides):
     return flagship_config(**kw)
 
 
+def _int_mm_applies(site) -> bool:
+    """One matrix product computes the site's int32 sums: a 1x1 stride-1
+    conv, or a VALID conv whose window covers its input."""
+    return site.k == 1 and site.stride == 1 or site.k == site.h == site.w and site.pads == ((0, 0), (0, 0))
+
+
 def check_conv_int8(dev, card_name: str):
     """The int8 convolution at seven sites of the serving flagship
-    (``kernel_bench.CONV_INT8_SITES``), on seeded int8 inputs and weights
-    over the whole range and seeded f32 scales and biases: the kernel's
-    int32 sums equal to the plain version's (f64 sums, exact) and its f32
-    outputs bit-equal (the same product, then the same sum). Beside each:
-    ``torch._int_mm``'s time where one matrix product computes the same
-    int32 sums (the library yardstick), and the bf16 cuDNN convolution the
-    float graph runs at the site (context only: another function)."""
+    (``kernel_bench.CONV_INT8_SITES``) and at one site that requantizes
+    for the next (``CONV_INT8_FUSED_SITE``), on seeded int8 inputs and
+    weights over the whole range and seeded f32 scales and biases. Both
+    routes, each checked against the plain versions: the Hopper kernel
+    (the route ``conv_plan`` picks for every serving site; the stem with
+    its input and weights padded to 16 channels, as the int8 graph runs it)
+    and the ``mma.sync`` kernel (``route="mma"``): int32 sums equal to the plain
+    version's (f64 sums, exact), f32 outputs bit-equal (the same product,
+    then the same sum), and at the fused site the int8 output bit-equal to
+    ``quantize_int8_plain`` of the plain f32 output. The two kernels timed in
+    turns, the plain version apart, with ``torch._int_mm`` where one matrix product computes
+    the same int32 sums (the library yardstick) and the bf16 cuDNN
+    convolution the float graph runs at the site (context only: another
+    function)."""
     import torch
     import torch.nn.functional as F
 
     from caesar_mrcnn_tpu_torch import kernel_bench as kb
+    from caesar_mrcnn_tpu_torch.models.backbone_int8 import pad_input_channels
     from caesar_mrcnn_tpu_torch.ops import quant as Q
 
     rec = _record()
+    rec["previous_ms"] = 0.0
     library = {"ms": 0.0, "kernel_ms": 0.0, "sites": []}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     sites = {site.name: site for site in kb.int8_sites(serving_config(), 512, 100)}
-    for name in kb.CONV_INT8_SITES:
+    for name in kb.CONV_INT8_SITES + (kb.CONV_INT8_FUSED_SITE,):
         site = sites[name]
+        fused = name == kb.CONV_INT8_FUSED_SITE
         x = torch.randint(-127, 128, (site.batch, site.h, site.w, site.cin), generator=gen, device=dev,
                           dtype=torch.int8)
         w = torch.randint(-127, 128, (site.cout, site.k, site.k, site.cin), generator=gen, device=dev,
                           dtype=torch.int8)
         sw = torch.rand(site.cout, generator=gen, device=dev) * 1e-3 + 1e-6
         b = torch.rand(site.cout, generator=gen, device=dev) * 2 - 1
+        # the Hopper route's operands: the stem's 3 channels padded to 16
+        cin = Q.padded_channels(site.cin)
+        xh = F.pad(x, (0, cin - site.cin)).contiguous() if cin != site.cin else x
+        wh = pad_input_channels(w)
+        plan = Q.conv_plan(site.m, site.cout, site.k * site.k * cin, cin,
+                           sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+        if plan.route != "wgmma":
+            raise AssertionError(f"conv2d_int8 {name}: routed to {plan.route}, not the Hopper kernel")
+        s_next = 0.0173 if fused else None
 
-        def kernel():
-            return Q.conv2d_int8(x, w, sw, b, site.stride, site.pads, site.relu)
+        def hopper():
+            return Q.conv2d_int8(xh, wh, sw, b, site.stride, site.pads, site.relu, s_next)
+
+        def previous():
+            return Q.conv2d_int8(x, w, sw, b, site.stride, site.pads, site.relu, s_next, route="mma")
 
         def plain():
-            return Q.conv2d_int8_plain(x, w, sw, b, site.stride, site.pads, site.relu)
+            return Q.conv2d_int8_plain(x, w, sw, b, site.stride, site.pads, site.relu, s_next)
 
-        acc, acc_plain = Q.conv2d_int8_accumulate(x, w, site.stride, site.pads), \
-            Q.conv2d_int8_accumulate_plain(x, w, site.stride, site.pads)
-        out, out_plain = kernel(), plain()
+        acc_plain = Q.conv2d_int8_accumulate_plain(x, w, site.stride, site.pads)
+        routes = dict(Q.conv2d_int8.route_launches)
+        accs = {"Hopper": Q.conv2d_int8_accumulate(xh, wh, site.stride, site.pads),
+                "mma.sync": Q.conv2d_int8_accumulate(x, w, site.stride, site.pads, route="mma")}
+        outs = {"Hopper": hopper(), "mma.sync": previous()}
+        if Q.conv2d_int8.route_launches != {"wgmma": routes["wgmma"] + 2, "mma": routes["mma"] + 2}:
+            raise AssertionError(f"conv2d_int8 {name}: route launches {Q.conv2d_int8.route_launches}, before {routes}")
+        out_plain = plain()
         torch.cuda.synchronize()
-        if not torch.equal(acc, acc_plain):
-            raise AssertionError(f"conv2d_int8 {name}: {int((acc != acc_plain).sum())} int32 sums differ")
-        if not torch.equal(out.view(torch.int32), out_plain.view(torch.int32)):
-            raise AssertionError(f"conv2d_int8 {name}: {int((out != out_plain).sum())} f32 outputs differ, max abs "
-                                 f"{float((out - out_plain).abs().max())}")
-        del acc, acc_plain, out, out_plain
-        ms, plain_ms = kb.median_ms(kernel, kb.REPS), kb.median_ms(plain, 3)
-        bound = kb.conv_int8_bound(site)
+        for route, acc in accs.items():
+            if not torch.equal(acc, acc_plain):
+                raise AssertionError(f"conv2d_int8 {name} ({route}): {int((acc != acc_plain).sum())} int32 sums differ")
+        for route, out in outs.items():
+            same = torch.equal(out, out_plain) if fused else torch.equal(out.view(torch.int32),
+                                                                         out_plain.view(torch.int32))
+            if not same:
+                raise AssertionError(f"conv2d_int8 {name} ({route}): {int((out != out_plain).sum())} outputs differ")
+        del accs, outs, out_plain
+        def unfused():  # the pair the fused call replaces: f32 out, then the quantizer pass
+            return Q.quantize_int8(Q.conv2d_int8(x, w, sw, b, site.stride, site.pads, site.relu, route="mma"), s_next)
+
+        # the kernels in turns; the plain version apart (its f64 convolution runs for up to 22 ms at full power
+        # and slows whatever follows it)
+        ms, previous_ms, *unfused_ms = kb.median_ms_turns([hopper, previous] + ([unfused] if fused else []), kb.REPS)
+        plain_ms = kb.median_ms(plain, 3)
+        bound = kb.conv_int8_bound(site if fused else site._replace(then=None))
         lib = ""
-        if site.k == 1 and site.stride == 1 or site.k == site.h == site.w and site.pads == ((0, 0), (0, 0)):
+        if _int_mm_applies(site):
             a2, w2 = x.view(site.m, site.kdim), w.view(site.cout, site.kdim).t()
 
             def int_mm():
                 return torch._int_mm(a2, w2)
 
-            if not torch.equal(int_mm(), Q.conv2d_int8_accumulate(x, w, site.stride, site.pads).view(site.m, -1)):
-                raise AssertionError(f"conv2d_int8 {name}: torch._int_mm's sums differ from the kernel's")
+            if not torch.equal(int_mm(), acc_plain.view(site.m, -1)):
+                raise AssertionError(f"conv2d_int8 {name}: torch._int_mm's sums differ from the plain version's")
             lib_ms = kb.median_ms(int_mm, kb.REPS)
             library["ms"] += lib_ms
             library["kernel_ms"] += ms
             library["sites"].append(name)
             lib = f"torch._int_mm {lib_ms:.4f} ms (int32 sums only); "
+        del acc_plain
         xf = torch.randn(site.batch, site.cin, site.h, site.w, generator=gen, device=dev).to(
             torch.bfloat16, memory_format=torch.channels_last)
         wf = torch.randn(site.cout, site.cin, site.k, site.k, generator=gen, device=dev).to(
@@ -466,50 +514,76 @@ def check_conv_int8(dev, card_name: str):
         (pt, pb), (pl, pr) = site.pads
         padding = (pt, pl) if (pt, pl) == (pb, pr) else 0
         cudnn_ms = kb.median_ms(lambda: F.conv2d(xf, wf, stride=site.stride, padding=padding), kb.REPS)
+        what = (f"requantized for {site.then} at s_next {s_next} (int8 out) bit-equal to quantize_int8_plain of the "
+                f"plain f32" if fused else "f32 bit-equal")
+        extra = ""
+        if name == "fpn/c5p5":  # the host's share: wrapper calls enqueued back to back (split-K: a scratch tile too)
+            host = {}
+            for label, fn in (("Hopper", hopper), ("mma.sync", previous), ("Hopper again", hopper)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(200):
+                    fn()
+                host[label] = (time.perf_counter() - t) / 200 * 1e3
+                torch.cuda.synchronize()
+            extra = (f"; host time per wrapper call (200 enqueued, host clock): Hopper route {host['Hopper']:.4f} / "
+                     f"{host['Hopper again']:.4f} ms, the mma.sync route {host['mma.sync']:.4f} ms")
+        if fused:
+            extra += f"; the unfused pair on the mma.sync route (f32 conv, then quantize_int8) {unfused_ms[0]:.4f} ms"
         print(f"kernels: conv2d_int8 {name} {site.k}x{site.k}/{site.stride} [{site.batch},{site.h},{site.w},"
-              f"{site.cin}] -> {site.cout}, M={site.m} K={site.kdim} N={site.cout}: int32 sums equal, f32 "
-              f"bit-equal; kernel {ms:.4f} ms ({site.ops / ms / 1e9:.1f} TOPS), plain {plain_ms:.3f} ms (median, "
-              f"CUDA events); {share(bound[0], ms)} ({bound[1]}); {lib or 'no PyTorch int8 call; '}cuDNN bf16 "
-              f"conv of the float graph {cudnn_ms:.4f} ms (context) [{card_name}]")
+              f"{site.cin}] -> {site.cout}, M={site.m} K={site.kdim} N={site.cout}: int32 sums equal, {what}, on "
+              f"both routes; Hopper kernel (bn {plan.bn}, split {plan.splits}, Cin {cin}) {ms:.4f} ms "
+              f"({site.ops / ms / 1e9:.1f} TOPS), mma.sync kernel {previous_ms:.4f} ms (medians in turns, CUDA "
+              f"events), plain {plain_ms:.3f} ms{extra}; {share(bound[0], ms)} ({bound[1]}); "
+              f"{lib or 'no PyTorch int8 call; '}cuDNN bf16 conv of the float graph {cudnn_ms:.4f} ms (context) "
+              f"[{card_name}]")
         _add(rec, 0.0, ms, plain_ms, bound)
-        del x, w, xf, wf
+        rec["previous_ms"] += previous_ms
+        del x, w, xh, wh, xf, wf
     torch.cuda.empty_cache()
     return rec, library
 
 
 def check_quantize_int8(dev, rng, card_name: str) -> dict:
     """The quantizer bit-equal to its plain version at the serving graph's
-    inputs (the stem's f32 image batch, the RPN's bf16 P2, a mask-head f32
-    activation) and on exact .5 ties (a power-of-two scale), f32 and
-    bf16."""
+    inputs (the stem's f32 image batch, written with its 3 channels padded
+    to 16 as the int8 graph runs it, against the plain version padded with
+    zeros; the RPN's bf16 P2, a mask-head f32 activation) and on exact .5
+    ties (a power-of-two scale), f32 and bf16."""
     import torch
+    import torch.nn.functional as F
 
     from caesar_mrcnn_tpu_torch import kernel_bench as kb
     from caesar_mrcnn_tpu_torch.ops import quant as Q
 
     rec = _record()
     ties = torch.from_numpy((rng.randint(-140, 140, 1 << 22) + 0.5).astype(np.float32) * 0.25).to(dev)
-    cases = [
-        ("stem input f32 [8,512,512,3]", torch.rand(8, 512, 512, 3, device=dev) * 255, 255 / 127),
+    cases = [  # (label, input, scale, channels written)
+        ("stem input f32 [8,512,512,3] -> int8 [8,512,512,16]", torch.rand(8, 512, 512, 3, device=dev) * 255,
+         255 / 127, 16),
         ("rpn/shared@p2 input bf16 [8,128,128,256]",
-         torch.randn(8, 128, 128, 256, device=dev).to(torch.bfloat16), 4.5 / 127),
-        ("mask/conv2 input f32 [800,14,14,256]", torch.randn(800, 14, 14, 256, device=dev).relu_(), 4.0 / 127),
-        ("ties f32 [4M]", ties, 0.25),
-        ("ties bf16 [4M]", ties.to(torch.bfloat16), 0.25),
+         torch.randn(8, 128, 128, 256, device=dev).to(torch.bfloat16), 4.5 / 127, None),
+        ("mask/conv2 input f32 [800,14,14,256]", torch.randn(800, 14, 14, 256, device=dev).relu_(), 4.0 / 127,
+         None),
+        ("ties f32 [4M]", ties, 0.25, None),
+        ("ties bf16 [4M]", ties.to(torch.bfloat16), 0.25, None),
     ]
-    for label, x, s_in in cases:
+    for label, x, s_in, channels in cases:
         def kernel():
-            return Q.quantize_int8(x, s_in)
+            return Q.quantize_int8(x, s_in, channels)
 
         def plain():
-            return Q.quantize_int8_plain(x, s_in)
+            q = Q.quantize_int8_plain(x, s_in)
+            return q if channels is None else F.pad(q, (0, channels - x.shape[-1]))
 
         k, p = kernel(), plain()
         torch.cuda.synchronize()
-        if not torch.equal(k, p):
-            raise AssertionError(f"quantize_int8 {label}: {int((k != p).sum())} values differ from the plain version")
+        if k.shape != p.shape or not torch.equal(k, p):
+            raise AssertionError(f"quantize_int8 {label}: {k.shape} against {p.shape}, "
+                                 f"{int((k != p).sum()) if k.shape == p.shape else 'all'} values differ from the "
+                                 f"plain version")
         ms, plain_ms = kb.median_ms(kernel, kb.REPS), kb.median_ms(plain, 5)
-        bound = kb.quantize_bound(x.numel(), x.element_size())
+        bound = kb.quantize_bound(x.numel(), x.element_size(), k.numel())
         print(f"kernels: quantize_int8 {label} s_in {s_in:.6g}: bit-equal; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms (median, CUDA events); {share(bound[0], ms)} ({bound[1]}) [{card_name}]")
         _add(rec, 0.0, ms, plain_ms, bound)
@@ -836,7 +910,9 @@ def check_catalog_parity(card_name: str) -> None:
 # ------------------------------------------------------------------ serving
 
 
-INT8_SITES = 123  # int8 convolutions (and quantizers) per detect batch at ResNet-101
+INT8_SITES = 123  # int8 convolutions per detect batch at ResNet-101
+INT8_FUSED = 70  # of them requantizing for the next in their epilogue
+INT8_QUANTIZERS = INT8_SITES - INT8_FUSED  # quantizer passes per batch
 
 
 def _int8_counters():
@@ -858,9 +934,10 @@ def _premold(det, tiles: np.ndarray):
     return x.contiguous(), metas[:len(tiles)], anchors
 
 
-def check_serving(card_name: str) -> dict:
+def check_serving(card_name: str):
     """The int8 serving graph at the serving flagship's width on the card,
-    through ``dispatch_tiles``/``collect`` (module docstring, phase 10)."""
+    through ``dispatch_tiles``/``collect`` (module docstring, phase 10).
+    Returns the first pass's launches and ``conv2d_int8``'s by route."""
     import torch
 
     from caesar_mrcnn_tpu_torch import kernel_bench as kb
@@ -890,16 +967,22 @@ def check_serving(card_name: str) -> dict:
     counters = _int8_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    conv = counters["conv2d_int8"]
     for k in counters.values():
         k.launches = 0
+    conv.route_launches = {"wgmma": 0, "mma": 0}
     results = run_pass(det, tiles)
     launches = {name: k.launches for name, k in counters.items()}
+    routes = dict(conv.route_launches)
     expected = {"nms": 2 * batches + 2, "roi_align": 2 * batches + 2, "conv2d_int8": INT8_SITES * batches,
-                "quantize_int8": INT8_SITES * batches}
+                "quantize_int8": INT8_QUANTIZERS * batches}
     if launches != expected or len(calibration) != 1 or len(det.qtree) != INT8_SITES:
-        raise AssertionError(f"serving launches {launches}, expected {expected} (123 int8 convs and quantizers per "
-                             f"batch, 2 NMS and 2 ROIAlign per batch and 2 of each for the calibration); "
-                             f"{len(calibration)} calibrations, {len(det.qtree)} sites")
+        raise AssertionError(f"serving launches {launches}, expected {expected} ({INT8_SITES} int8 convs and "
+                             f"{INT8_QUANTIZERS} quantizer passes per batch, 2 NMS and 2 ROIAlign per batch and 2 "
+                             f"of each for the calibration); {len(calibration)} calibrations, {len(det.qtree)} sites")
+    if routes != {"wgmma": INT8_SITES * batches, "mma": 0}:
+        raise AssertionError(f"serving: conv2d_int8 routes {routes}: every one of the {INT8_SITES} sites of a batch "
+                             f"must run the Hopper kernel")
     for r in results:
         n = len(r["class_ids"])
         if r["masks"].shape != (512, 512, n) or r["rois"].shape != (n, 4):
@@ -920,7 +1003,8 @@ def check_serving(card_name: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     print(f"serving: {len(tiles)} tiles of 512^2 from the seeded 2048^2 mosaic, ResNet-101 batch 8 int8 "
           f"(bf16 heads), 3000/512 proposals; calibration on the first batch {calibration[0]:.3f} s; launches over "
-          f"the first pass {launches} ({INT8_SITES} conv2d_int8 and {INT8_SITES} quantize_int8 per batch); "
+          f"the first pass {launches} ({INT8_SITES} conv2d_int8, all on the Hopper route {routes}, and "
+          f"{INT8_QUANTIZERS} quantize_int8 per batch: {INT8_FUSED} quantizers run in convolution epilogues); "
           f"detections per tile {counts} [{card_name}]")
 
     x, metas, anchors = _premold(det, tiles[:cfg.batch_size])
@@ -928,21 +1012,24 @@ def check_serving(card_name: str) -> dict:
     steps = {name: kb.median_ms(lambda d=d: d._step(x, metas, anchors, len(x)), 10)
              for name, d in (("int8", det), ("bf16", bf16), ("int8 again", det), ("bf16 again", bf16))}
     split = kb.device_split(lambda: det._step(x, metas, anchors, len(x)), 3)
-    own = {k: sum(ms for key, (ms, _) in split.items() if k in key) for k in ("conv_int8_kernel", "quantize_int8_kernel")}
+    own = {k: sum(ms for key, (ms, _) in split.items() if k in key) for k in ("conv_int8", "quantize_int8")}
     total = sum(ms for ms, _ in split.values())
     top = sorted(split.items(), key=lambda kv: -kv[1][0])[:5]
     bf16_total = sum(ms for ms, _ in kb.device_split(lambda: bf16._step(x, metas, anchors, len(x)), 3).values())
-    conv_bound = sum(kb.conv_int8_bound(s)[0]
-                     for s in kb.int8_sites(cfg, cfg.post_nms_rois_inference, cfg.detection_max_instances))
+    sites = kb.int8_sites(cfg, cfg.post_nms_rois_inference, cfg.detection_max_instances)
+    conv_bound = sum(kb.conv_int8_bound(s)[0] for s in sites)
+    unfused_bound = sum(kb.conv_int8_bound(s._replace(then=None))[0] for s in sites)
+    quant_bound = sum(kb.input_quantize_bound(s)[0] for s in sites if s.name not in {x.then for x in sites})
     print(f"serving: timed third pass {len(tiles) / dt:.2f} img/s (dispatch/collect with unmold, tiles pre-read); "
           f"detect step per batch of 8 (median of 10, CUDA events): int8 {steps['int8']:.2f} / "
           f"{steps['int8 again']:.2f} ms, bf16 graph on the same weights and tiles {steps['bf16']:.2f} / "
           f"{steps['bf16 again']:.2f} ms; peak device memory {peak_first / 2**30:.2f} GiB over the first pass "
           f"(the f32 calibration in it), {peak / 2**30:.2f} GiB over the timed pass [{card_name}]")
     print(f"serving: int8 step's device time {total:.2f} ms (profiler, per step; the bf16 graph's {bf16_total:.2f} "
-          f"ms): conv_int8_kernel {own['conv_int8_kernel']:.2f} ms (the {INT8_SITES} sites' summed bound "
-          f"{conv_bound:.4f} ms), quantize_int8_kernel "
-          f"{own['quantize_int8_kernel']:.2f} ms, the rest {total - sum(own.values()):.2f} ms; top: "
+          f"ms): convolution kernels {own['conv_int8']:.2f} ms (the {INT8_SITES} sites' summed bound "
+          f"{conv_bound:.4f} ms with {INT8_FUSED} int8 outputs, {unfused_bound:.4f} ms with every output f32 as "
+          f"before the fusion), quantizer kernels {own['quantize_int8']:.2f} ms ({INT8_QUANTIZERS} passes, their "
+          f"bound {quant_bound:.4f} ms at their inputs' dtypes), the rest {total - sum(own.values()):.2f} ms; top: "
           + "; ".join(f"{k[:50]} {v[0]:.3f}" for k, v in top) + f" [{card_name}]")
 
     folded = Q.fold_detect(W.state_dict_to_flax(det.model.state_dict()), cfg)
@@ -954,7 +1041,7 @@ def check_serving(card_name: str) -> dict:
           + ", ".join(f"{v:.4f}" for v in rel) + f" (bound 0.25) [{card_name}]")
     if not all(0 < v < 0.25 for v in rel):
         raise AssertionError(f"serving: int8 pyramid relative L2 {rel} outside (0, 0.25)")
-    return launches
+    return launches, routes
 
 
 def check_serving_parity(card_name: str) -> None:
@@ -1360,7 +1447,7 @@ def check_cli(card_name: str) -> dict:
             float_launches = {"nms_padded": 4, "roi_align": 4, "roi_align_backward": 0, "crop_and_resize": 0,
                               **no_int8}
             serving_launches = {**float_launches, "nms_padded": 6, "roi_align": 6,
-                                "conv2d_int8": 2 * INT8_SITES, "quantize_int8": 2 * INT8_SITES}
+                                "conv2d_int8": 2 * INT8_SITES, "quantize_int8": 2 * INT8_QUANTIZERS}
             for mode, serving in (("test", []), ("test --serving", ["--serving"])):
                 wall, launches = run_cli(["test", "--datalist", datalist] + scores + data + serving, counters)
                 with open(os.path.join(logs, "map_summary.json")) as f:
@@ -1418,8 +1505,8 @@ def main() -> None:
     path, log = _kernels.build()
     _kernels.library()
     print(f"build: {os.path.relpath(path)} in {time.perf_counter() - t:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+    for line in log.splitlines():  # ptxas: each kernel's registers, shared memory, spills and warnings
+        if any(w in line for w in ("registers", "Compiling entry", "spill", "arning")):
             print(f"build: {line.strip()}")
     t = time.perf_counter()
     if not native.available():
@@ -1447,7 +1534,7 @@ def main() -> None:
                                           "crop_and_resize": crop}, card_name)
         check_train_parity(ds, card_name)
     torch.cuda.empty_cache()
-    serving = check_serving(card_name)
+    serving, serving_routes = check_serving(card_name)
     check_serving_parity(card_name)
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -1471,7 +1558,8 @@ def main() -> None:
         record("crop_and_resize", "crop_and_resize.cu", "caesar_mrcnn_tpu/ops/roi_align.py:43", crop),
         {**record("conv2d_int8", "conv_int8.cu", "caesar_mrcnn_tpu/models/backbone_int8.py:276", conv8,
                   conv8_library["ms"]),
-         "library_sites": conv8_library["sites"], "ms_at_library_sites": conv8_library["kernel_ms"]},
+         "library_sites": conv8_library["sites"], "ms_at_library_sites": conv8_library["kernel_ms"],
+         "ms_previous_route": conv8["previous_ms"], "serving_routes": serving_routes},
         record("quantize_int8", "conv_int8.cu", "caesar_mrcnn_tpu/models/backbone_int8.py:272", quant8),
     ]
     print(card_name)

@@ -224,7 +224,8 @@ def test_int8_sites_are_the_sites_the_int8_stages_run():
 
 def test_conv_int8_bound():
     """The stem is bound by its f32 output, the mask head's 3x3 by its
-    operations at the int8 tensor-core rate."""
+    operations at the int8 tensor-core rate; a site that requantizes for
+    the next writes one byte per output."""
     from caesar_mrcnn_tpu_torch.config import detector_config
 
     sites = {s.name: s for s in kb.int8_sites(detector_config(**SERVING), 512, 100)}
@@ -238,9 +239,13 @@ def test_conv_int8_bound():
     # 64^2 of the 128^2 pixels, 8 * 64 * 64 * 256 int8 bytes
     res3a = sites["bb/res3a/conv1"]
     assert (res3a.h, res3a.cin, res3a.k, res3a.stride, res3a.out_hw, res3a.read_hw) == (128, 256, 1, 2, (64, 64), (64, 64))
-    ms, by = kb.conv_int8_bound(res3a)
+    ms, by = kb.conv_int8_bound(res3a._replace(then=None))
     assert by == "bytes"
     assert ms == pytest.approx((8 * 64 * 64 * 256 + 128 * 256 + 8 * 64 * 64 * 128 * 4) / 3.35e12 * 1e3)
+    # it requantizes for res3a/conv2: its output leaves int8, one byte each
+    ms, by = kb.conv_int8_bound(res3a)
+    assert res3a.then == "bb/res3a/conv2" and by == "bytes"
+    assert ms == pytest.approx((8 * 64 * 64 * 256 + 128 * 256 + 8 * 64 * 64 * 128) / 3.35e12 * 1e3)
     # the stem's 7x7/2 taps cover every row and column; only the six 1x1/2
     # convs (res3a..res5a conv1 and shortcut) skip any
     assert sites["bb/conv1"].read_hw == (512, 512)
@@ -249,3 +254,23 @@ def test_conv_int8_bound():
     assert all(s.read_hw == s.out_hw for s in sites.values() if s.k == 1 and s.stride == 2)
     ms, by = kb.quantize_bound(1000, 2)
     assert by == "bytes" and ms == pytest.approx(3000 / 3.35e12 * 1e3)
+
+
+def test_input_quantize_bound():
+    """The quantizer in front of a site reads its input in the dtype the
+    graph hands it (bf16 into the RPN's shared conv and the heads' first
+    convs, f32 elsewhere) and writes int8 with the channels padded to 16:
+    the stem's image leaves with 16 bytes a pixel."""
+    from caesar_mrcnn_tpu_torch.config import detector_config
+
+    sites = kb.int8_sites(detector_config(**SERVING), 512, 100)
+    assert {s.name for s in sites if s.in_bytes == 2} == \
+        {f"rpn/shared@p{i}" for i in range(2, 7)} | {"cls/conv1", "mask/conv1"}
+    assert all(s.in_bytes == 4 for s in sites if s.in_bytes != 2)
+    by_name = {s.name: s for s in sites}
+    ms, by = kb.input_quantize_bound(by_name["bb/conv1"])
+    assert by == "bytes" and ms == pytest.approx((8 * 512 * 512 * 3 * 4 + 8 * 512 * 512 * 16) / 3.35e12 * 1e3)
+    ms, by = kb.input_quantize_bound(by_name["rpn/shared@p2"])
+    assert by == "bytes" and ms == pytest.approx(8 * 128 * 128 * 256 * 3 / 3.35e12 * 1e3)
+    ms, by = kb.quantize_bound(1000, 4, 2000)
+    assert by == "bytes" and ms == pytest.approx(6000 / 3.35e12 * 1e3)

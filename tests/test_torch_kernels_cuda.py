@@ -405,6 +405,142 @@ def test_quantize_int8_kernel_equals_plain(cuda, dtype, n, offset):
         assert torch.equal(got, Q.quantize_int8_plain(x, s))
 
 
+def _int8_case(cuda, b, h, w, cin, cout, k, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randint(-127, 128, (b, h, w, cin), generator=gen, device=cuda, dtype=torch.int8)
+    wt = torch.randint(-127, 128, (cout, k, k, cin), generator=gen, device=cuda, dtype=torch.int8)
+    sw = torch.rand(cout, generator=gen, device=cuda) * 1e-3
+    bias = torch.rand(cout, generator=gen, device=cuda) - 0.5
+    return x, wt, sw, bias
+
+
+def _hopper_equals_plain(x, wt, sw, bias, stride, pads):
+    """The Hopper route's int32 sums equal and its f32 (with and without
+    ReLU) and requantized outputs bit-equal to the plain versions."""
+    routes = dict(Q.conv2d_int8.route_launches)
+    acc = Q.conv2d_int8_accumulate(x, wt, stride, pads, route="wgmma")
+    assert torch.equal(acc, Q.conv2d_int8_accumulate_plain(x, wt, stride, pads))
+    for relu in (False, True):
+        got = Q.conv2d_int8(x, wt, sw, bias, stride, pads, relu, route="wgmma")
+        assert torch.equal(got, Q.conv2d_int8_plain(x, wt, sw, bias, stride, pads, relu))
+    got = Q.conv2d_int8(x, wt, sw, bias, stride, pads, True, s_next=0.0137, route="wgmma")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8
+    assert torch.equal(got, Q.conv2d_int8_plain(x, wt, sw, bias, stride, pads, True, s_next=0.0137))
+    assert Q.conv2d_int8.route_launches == {**routes, "wgmma": routes["wgmma"] + 4}
+
+
+# M, K and Cout tails around 64, 128 and 256: M 126 / 72 / 396 / 128 / 130,
+# K 288 / 576 / 400 / 128 / 1568 (a stage is 128 bytes), Cout 72 / 136 / 200
+# / 264 / 24
+HOPPER_SHAPES = [(2, 9, 7, 32, 72, 3, 1, "SAME"), (1, 17, 16, 64, 136, 3, 2, "SAME"),
+                 (3, 12, 11, 16, 200, 5, 1, "SAME"), (2, 8, 8, 128, 264, 1, 1, "SAME"),
+                 (130, 7, 7, 32, 24, 7, 1, "VALID")]
+
+
+@pytest.mark.parametrize("bn", [64, 128, 256])
+@pytest.mark.parametrize("shape", HOPPER_SHAPES, ids=[f"M{s[0]}x{s[1]}x{s[2]}-Cin{s[3]}-Cout{s[4]}-k{s[5]}"
+                                                       for s in HOPPER_SHAPES])
+def test_conv2d_int8_hopper_route_equals_plain(cuda, monkeypatch, bn, shape):
+    """Each tile width, unsplit and split in two, at M, K and Cout tails."""
+    b, h, w, cin, cout, k, stride, padding = shape
+    x, wt, sw, bias = _int8_case(cuda, b, h, w, cin, cout, k, seed=bn + cin)
+    pads = Q.xla_pads(padding, k, stride, (h, w))
+    for splits in (1, 2):
+        monkeypatch.setattr(Q, "_tiles", lambda m, n, kd, sms, bn=bn, splits=splits: (bn, splits))
+        _hopper_equals_plain(x, wt, sw, bias, stride, pads)
+
+
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_conv2d_int8_hopper_split_k(cuda, monkeypatch, splits):
+    """K = 7168 (56 stages) split 1 to 8 ways, each share whole: the sums,
+    and so every output, do not depend on the split."""
+    x, wt, sw, bias = _int8_case(cuda, 2, 9, 9, 448, 136, 4, seed=splits)
+    pads = Q.xla_pads("SAME", 4, 1, (9, 9))
+    for bn in (128, 256):
+        monkeypatch.setattr(Q, "_tiles", lambda m, n, kd, sms, bn=bn: (bn, splits))
+        _hopper_equals_plain(x, wt, sw, bias, 1, pads)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+def test_conv2d_int8_requantize_on_ties_and_past_127(cuda, route):
+    """The requantizing epilogue bit-equal to quantize_int8_plain of the
+    plain f32 output where y / s_next lands on .5 ties (sw a power of two,
+    the bias a half) and far past +-127."""
+    x, wt, _, _ = _int8_case(cuda, 2, 10, 10, 32, 48, 3, seed=7)
+    sw = torch.full((48,), 2.0 ** -9, device=cuda)
+    bias = torch.arange(48, device=cuda, dtype=torch.float32) * 0.5 - 12.0
+    pads = Q.xla_pads("SAME", 3, 1, (10, 10))
+    for relu, s_next in ((False, 0.25), (True, 0.5), (False, 2.0 ** -7)):
+        got = Q.conv2d_int8(x, wt, sw, bias, 1, pads, relu, s_next=s_next, route=route)
+        y = Q.conv2d_int8_plain(x, wt, sw, bias, 1, pads, relu)
+        torch.cuda.synchronize()
+        assert torch.equal(got, Q.quantize_int8_plain(y, s_next))
+        ratio = y / s_next
+        assert (ratio == ratio.round() + 0.5).any() or (ratio == ratio.round() - 0.5).any()
+        assert (ratio.abs() > 127).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_padded_to_16_channels_equals_unpadded(cuda, dtype):
+    """The stem's image quantized with its 3 channels padded to 16 and the
+    packed weights padded to match: the same int32 sums as the unpadded
+    conv, on the Hopper route (K 784 against 147)."""
+    from caesar_mrcnn_tpu_torch.models.backbone_int8 import pad_input_channels
+
+    rng = np.random.RandomState(3)
+    img = torch.from_numpy(rng.uniform(-130, 130, (2, 37, 30, 3)).astype(np.float32)).to(cuda, dtype)
+    before = Q.quantize_int8.launches
+    xq = Q.quantize_int8(img, 1.0, channels=16)
+    assert Q.quantize_int8.launches == before + 1 and xq.shape == (2, 37, 30, 16)
+    plain = Q.quantize_int8_plain(img, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(xq[..., :3], plain) and not xq[..., 3:].any()
+    wt = torch.randint(-127, 128, (64, 7, 7, 3), generator=torch.Generator(device=cuda).manual_seed(1),
+                       device=cuda, dtype=torch.int8)
+    wp = pad_input_channels(wt)
+    assert wp.shape == (64, 7, 7, 16) and wp.is_contiguous()
+    pads = Q.xla_pads(Q.STEM_PADS, 7, 2, (37, 30))
+    routes = dict(Q.conv2d_int8.route_launches)
+    got = Q.conv2d_int8_accumulate(xq, wp, 2, pads)
+    assert Q.conv2d_int8.route_launches["wgmma"] == routes["wgmma"] + 1
+    assert torch.equal(got, Q.conv2d_int8_accumulate_plain(plain, wt, 2, pads))
+
+
+def test_conv2d_int8_routes_are_chosen_by_shape(cuda):
+    """16 | Cin and aligned: the Hopper route; Cin 3, or an input 1 byte
+    into its buffer: the mma.sync kernel; each counted on its route, and the
+    Hopper route asked for a shape it does not take raises before any
+    launch."""
+    x, wt, sw, bias = _int8_case(cuda, 1, 6, 6, 32, 16, 3, seed=0)
+    pads = Q.xla_pads("SAME", 3, 1, (6, 6))
+    assert Q.conv_plan(36, 16, 288, 32).route == "wgmma"
+    assert Q.conv_plan(36, 16, 27, 3).route == "mma" and Q.conv_plan(36, 16, 288, 32, aligned=False).route == "mma"
+    counts = lambda: (Q.conv2d_int8.launches, dict(Q.conv2d_int8.route_launches))  # noqa: E731
+    n, routes = counts()
+    Q.conv2d_int8(x, wt, sw, bias, 1, pads)
+    Q.conv2d_int8(x, wt, sw, bias, 1, pads, route="mma")
+    x3, w3, _, _ = _int8_case(cuda, 1, 6, 6, 3, 16, 3, seed=0)
+    Q.conv2d_int8(x3, w3, sw, bias, 1, pads)
+    buf = torch.zeros(1 + x.numel(), dtype=torch.int8, device=cuda)
+    Q.conv2d_int8(buf[1:].view(x.shape), wt, sw, bias, 1, pads)
+    assert counts() == (n + 4, {"wgmma": routes["wgmma"] + 1, "mma": routes["mma"] + 3})
+    with pytest.raises(ValueError, match="wgmma route"):
+        Q.conv2d_int8(x3, w3, sw, bias, 1, pads, route="wgmma")
+    assert counts()[0] == n + 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out", [(3, 16), (1, 16), (17, 32), (16, 48)])
+def test_quantize_int8_pad_kernel_equals_plain(cuda, dtype, c_in, c_out):
+    rng = np.random.RandomState(c_in)
+    vals = ((rng.randint(-140, 140, (5, 7, c_in)) + 0.5) * 0.25).astype(np.float32)
+    x = torch.from_numpy(vals).to(cuda, dtype)
+    got = Q.quantize_int8(x, 0.25, channels=c_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.nn.functional.pad(Q.quantize_int8_plain(x, 0.25), (0, c_out - c_in)))
+
+
 def test_int8_wrappers_reject_what_they_do_not_take(cuda):
     x = torch.zeros(1, 4, 4, 16, dtype=torch.int8, device=cuda)
     wt = torch.zeros(8, 3, 3, 16, dtype=torch.int8, device=cuda)
@@ -421,3 +557,5 @@ def test_int8_wrappers_reject_what_they_do_not_take(cuda):
         Q.quantize_int8(x, 0.5)
     with pytest.raises(ValueError, match="contiguous"):
         Q.quantize_int8(torch.zeros(4, 4, device=cuda).t(), 0.5)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        Q.quantize_int8(torch.zeros(4, 3, device=cuda), 0.5, channels=8)
