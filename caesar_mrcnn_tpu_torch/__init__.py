@@ -5,10 +5,13 @@ its serving ``detect`` path (tiles -> Mask R-CNN -> per-tile detections and
 masks), the host layer on it (``analysis``: ``SFinder`` catalogs and DS9
 regions, ``ModelTester`` evaluation) and its training path
 (``TrainingPipeline`` -> ``forward_train`` -> losses -> backward ->
-optimizer) with PyTorch on an NVIDIA Hopper card.
-NMS, multilevel ROIAlign and its gradient, and the mask-target
-crop_and_resize are hand-written CUDA kernels (``csrc/``), built at first
-use; every other stage is plain PyTorch.
+optimizer) with PyTorch on an NVIDIA Hopper card, and exports the detect
+graph as a ``torch.export`` artifact for serving (``inference/export.py``).
+NMS, multilevel ROIAlign and its gradient, the mask-target
+crop_and_resize, the int8 quantizer and the int8 convolution are
+hand-written CUDA kernels (``csrc/``), built at first use and reached as
+operators of the ``caesar`` namespace (``ops/library.py``); every other
+stage is plain PyTorch.
 
 The host modules it needs keep the JAX package's module paths as copies of
 their own (``config``, ``data.dataset``, ``data.augment``,

@@ -1,7 +1,7 @@
-"""Main CLI: ``python -m caesar_mrcnn_tpu_torch.cli.run [opts] {train,test,detect}``.
+"""Main CLI: ``python -m caesar_mrcnn_tpu_torch.cli.run [opts] {train,test,detect,export}``.
 
 The port of ``caesar_mrcnn_tpu/cli/run.py`` on the port's modules: the same
-flags with the same defaults, the same three run modes, dataset factories
+flags with the same defaults, the same four run modes, dataset factories
 and config overrides, and weights restored by name (``--weights``: a
 ``.pt`` checkpoint of the port or a Keras ``.h5``) with optional layer
 exclusion.
@@ -14,8 +14,14 @@ CPU.
 Where it differs from the JAX CLI:
 
 * what the port does not have yet is refused before any work is done,
-  naming its ROADMAP item: ``export`` (A15), ``--ngpu`` above 1 (A13), and
+  naming its ROADMAP item: ``--ngpu`` above 1 (A13), and
   ``--roi_gather_dtype`` other than ``none`` (not to be ported);
+* ``export --serving`` and ``export --quant_mode int8`` are refused: the
+  int8 graph needs calibration images, which ``export`` has none of (the
+  JAX CLI exports the float graph then); export a calibrated ``Detector``
+  with ``inference.export.export_detector`` instead;
+* ``export`` writes a ``torch.export`` artifact (``inference/export.py``),
+  which runs on the kind of device it was exported on (``--device``);
 * ``train --serving`` is refused (the serving preset is for test and
   detect; the JAX CLI applies it to training);
 * an unknown class name or a threshold that is not a number in
@@ -50,10 +56,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     )
     parser.add_argument(
         "command", metavar="<command>",
-        help="'train', 'test' or 'detect' ('export' is not ported: ROADMAP A15)",
+        help="'train', 'test', 'detect' or 'export'",
     )
     parser.add_argument("--export_path", type=str, default=None,
-                        help="output path for the 'export' command (not ported: ROADMAP A15)")
+                        help="output path for the 'export' command")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on: the card ('cuda', the default) unless 'cpu' is asked for")
 
@@ -224,9 +230,14 @@ def _quant_mode(args) -> str:
 
 def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for what the JAX CLI does and the port
-    does not yet, naming its ROADMAP item."""
-    if args.command == "export":
-        raise NotImplementedError("'export' (the serving artifact) is not ported yet: ROADMAP A15")
+    does not: not yet (naming its ROADMAP item), or not from the CLI (the
+    int8 export)."""
+    if args.command == "export" and _quant_mode(args) == "int8":
+        raise NotImplementedError(
+            "export of the int8 graph (--serving, --quant_mode int8): it needs calibration images, which the "
+            "export command has none of; call inference.export.export_detector on a Detector after "
+            "Detector.quantize(images)"
+        )
     if args.ngpu > 1:
         raise NotImplementedError(f"--ngpu {args.ngpu}: the port runs on one device; data parallelism is ROADMAP A13")
     if args.roi_gather_dtype != "none":
@@ -526,6 +537,15 @@ def run_test(args, cfg: Config) -> int:
     return tester.test()
 
 
+def run_export(args, cfg: Config) -> int:
+    """Export the (optionally weight-restored) detect graph as a
+    self-contained serving artifact (``inference/export.py``)."""
+    from ..inference.export import export_detector
+
+    export_detector(_build_detector(args, cfg), args.export_path)
+    return 0
+
+
 def run_detect(args, cfg: Config) -> int:
     from ..analysis.sfinder import SFinder
 
@@ -583,6 +603,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return run_test(args, cfg)
     if args.command == "detect":
         return run_detect(args, cfg)
+    if args.command == "export":
+        return run_export(args, cfg)
     return 1
 
 

@@ -73,14 +73,20 @@ class Detector:
         """The detect graph on a device batch; in int8 mode, calibrated
         first on its ``n_in`` real images when there is no int8 graph for
         the current weights."""
-        if self._stages is not None and self._stages_version != self._weights_version():
-            self._stages = self.qtree = None  # new weights: the int8 graph is stale
-        if self._stages is None and self.config.quant_mode == "int8":
+        if self.int8_graph() is None and self.config.quant_mode == "int8":
             self._quantize_molded(molded[:n_in], metas[:n_in], anchors)
         graph = self.model if self._stages is None else self._stages
         return forward_inference(graph, molded, metas, anchors, self._rpn_std, self._bbox_std)
 
     # ------------------------------------------------------- quantization
+    def int8_graph(self):
+        """The int8 graph (``heads_int8.DetectStages``) for the current
+        weights, or None; one quantized from weights that have changed
+        since is dropped."""
+        if self._stages is not None and self._stages_version != self._weights_version():
+            self._stages = self.qtree = None
+        return self._stages
+
     def _weights_version(self) -> int:
         """Changes whenever a parameter or buffer of the model is written in
         place (``load_state_dict`` copies into them)."""

@@ -1,3 +1,6 @@
-"""Device ops: batched NMS, multilevel ROIAlign and its gradient, and the
-mask-target crop_and_resize, each a CUDA kernel with its plain PyTorch
-version beside it."""
+"""Device ops: batched NMS, multilevel ROIAlign and its gradient, the
+mask-target crop_and_resize, the int8 quantizer and the int8 convolution,
+each a CUDA kernel with its plain PyTorch version beside it, reached
+through one operator namespace (``library.py``: ``torch.ops.caesar``)."""
+
+from . import library  # noqa: F401  (registers the caesar operators)

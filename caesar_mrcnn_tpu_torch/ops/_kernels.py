@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The library lands in
-``build/kernels/`` at the repository root, named by a hash of the sources
-and flags, so a changed source rebuilds and an unchanged one is reused.
-Nothing is built when this module is imported: :func:`library` builds on
-first use.
+with a plain C interface, loaded with ``ctypes``. Its one caller is
+``library.py``, whose ``CUDA`` implementations of the ``caesar`` operators
+pass it the tensors' addresses and the current stream. The library lands
+in ``build/kernels/`` at the repository root, named by a hash of the
+sources and flags, so a changed source rebuilds and an unchanged one is
+reused. Nothing is built when this module is imported: :func:`library`
+builds on first use.
 """
 
 from __future__ import annotations
@@ -91,8 +93,13 @@ def build() -> tuple:
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """Build if needed, load once, and declare every entry point."""
-    lib = ctypes.CDLL(str(build()[0]))
+    """Build if needed and load once."""
+    return load(build()[0])
+
+
+def load(path) -> ctypes.CDLL:
+    """Load a built library and declare every entry point."""
+    lib = ctypes.CDLL(str(path))
     lib.caesar_nms.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P, _P]
     lib.caesar_nms.restype = _I
     lib.caesar_roi_align.argtypes = [_P] * 4 + [_I] * 10 + [_P, _I, _I, _F, _I, _I, _P, _P]

@@ -10,9 +10,10 @@ Port of ``caesar_mrcnn_tpu/ops/nms.py::nms_padded`` (contract at its
 * the result is ``(idx [B, max_output] int32`` into the input order,
   ``valid [B, max_output] bool)``; padding slots hold index 0, not valid.
 
-:func:`nms_padded` runs ``csrc/nms.cu`` for CUDA tensors and
-:func:`nms_sorted_plain` for CPU tensors; the plain version is the tests'
-oracle, and nothing falls back to it on the card.
+:func:`nms_padded` calls the operator ``caesar::nms`` (``library.py``),
+which runs ``csrc/nms.cu`` for CUDA tensors and :func:`nms_sorted_plain`
+for CPU tensors; the plain version is the tests' oracle, and nothing falls
+back to it on the card.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Tuple
 
 import torch
 
-from . import _kernels
+from . import library
 
 
 def pairwise_iou(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
@@ -79,29 +80,6 @@ def nms_sorted_plain(
     return idx[:, :max_output].to(torch.int32), valid
 
 
-def _nms_cuda(boxes, scores, order, max_output: int, iou_threshold: float):
-    """The kernels of ``csrc/nms.cu`` on the unsorted boxes and scores and
-    the sort order: the mask kernel gathers and zeroes the sorted boxes
-    itself."""
-    b, n = scores.shape
-    words = (n + 63) // 64
-    if words * 8 > 48 * 1024:
-        raise ValueError(f"nms kernel takes at most {48 * 1024 * 8} boxes, got {n}")
-    dev = boxes.device
-    scratch = torch.empty(b * n * words + b * words, dtype=torch.int64, device=dev)  # mask, validity
-    state = torch.empty(b * (2 + max_output), dtype=torch.int32, device=dev)  # between the phases
-    idx = torch.empty((b, max_output), dtype=torch.int32, device=dev)
-    valid = torch.empty((b, max_output), dtype=torch.bool, device=dev)
-    status = _kernels.library().caesar_nms(
-        boxes.data_ptr(), scores.data_ptr(), order.data_ptr(), b, n, float(iou_threshold),
-        max_output, scratch.data_ptr(), state.data_ptr(), idx.data_ptr(), valid.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _kernels.check(status, "caesar_nms")
-    nms_padded.launches += 1
-    return idx, valid
-
-
 def nms_padded(
     boxes: torch.Tensor,
     scores: torch.Tensor,
@@ -117,8 +95,9 @@ def nms_padded(
       iou_threshold: suppress when IoU > threshold.
 
     Returns (idx [B, max_output] int32 into the input order, valid
-    [B, max_output] bool). CUDA tensors run the kernel (and count one
-    launch in ``nms_padded.launches``); CPU tensors run the plain version.
+    [B, max_output] bool), from the operator ``caesar::nms``: CUDA tensors
+    run the kernel (and count one launch in ``nms_padded.launches``), CPU
+    tensors the plain version.
     """
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
         raise ValueError(f"boxes {tuple(boxes.shape)} / scores {tuple(scores.shape)}")
@@ -128,13 +107,7 @@ def nms_padded(
         raise ValueError("boxes and scores on different devices")
     if boxes.shape[1] == 0 or max_output < 1:
         raise ValueError("nms_padded needs at least one box and max_output >= 1")
-    if boxes.device.type == "cpu":
-        return nms_sorted_plain(*sort_boxes(boxes, scores), max_output, iou_threshold)
-    if boxes.device.type != "cuda":
-        raise RuntimeError(f"nms_padded: no kernel for device {boxes.device}")
-    boxes, scores = boxes.contiguous(), scores.contiguous()
-    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
-    return _nms_cuda(boxes, scores, order, max_output, iou_threshold)
+    return library.ops.nms(boxes, scores, max_output, iou_threshold)
 
 
 nms_padded.launches = 0

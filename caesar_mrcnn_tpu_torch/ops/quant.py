@@ -20,9 +20,11 @@ Weights are packed ``[Cout, kh, kw, Cin]`` int8 (the reduction runs over
 ``(ky, kx, ci)`` in that order); activations are NHWC, contiguous: a
 channels_last NCHW tensor is one ``permute(0, 2, 3, 1)`` away, without a
 copy. :func:`xla_pads` and :func:`pad_for` give XLA's padding of every
-site. CUDA tensors run ``csrc/conv_int8.cu`` (each launch counted on the
+site. The wrappers check their inputs and call the operators
+``caesar::quantize_int8`` and ``caesar::conv2d_int8`` (``library.py``):
+CUDA tensors run ``csrc/conv_int8.cu`` (each launch counted on the
 wrapper), CPU tensors the plain versions; nothing falls back. The
-convolution has two routes, chosen by shape before the launch
+convolution has two routes, chosen by shape and alignment on the card
 (:func:`conv_plan`): the Hopper kernel (wgmma, a TMA and cp.async ring,
 split-K) where 16 divides Cin and the tensors are 16-byte aligned, the
 ``mma.sync`` kernel for every other shape; each route counts its
@@ -31,14 +33,13 @@ launches in ``conv2d_int8.route_launches``.
 
 from __future__ import annotations
 
-import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from . import _kernels
+from . import library
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 STEM_PADS: Pads = ((3, 3), (3, 3))
@@ -76,6 +77,12 @@ def pad_for(site: str) -> Union[str, Pads]:
     return "SAME"
 
 
+def _flat(pads: Pads) -> List[int]:
+    """((top, bottom), (left, right)) as the operator takes it: [top,
+    bottom, left, right]."""
+    return [int(v) for p in pads for v in p]
+
+
 def out_size(size: Tuple[int, int], k: int, stride: int, pads: Pads) -> Tuple[int, int]:
     return tuple((n + lo + hi - k) // stride + 1 for n, (lo, hi) in zip(size, pads))
 
@@ -99,9 +106,9 @@ def quantize_int8(x: torch.Tensor, s_in: float, channels: Optional[int] = None) 
     """Per-tensor int8 quantization of a contiguous f32 or bf16 tensor;
     ``s_in`` is the f32 scale. ``channels`` (a multiple of 16, at least the
     last dimension) pads the last dimension with zeros: the stem's NHWC
-    image leaves with 16 channels. CUDA tensors run a kernel of
-    ``csrc/conv_int8.cu`` (one launch, counted in
-    ``quantize_int8.launches``); CPU tensors the plain version."""
+    image leaves with 16 channels. Through ``caesar::quantize_int8``: CUDA
+    tensors run a kernel of ``csrc/conv_int8.cu`` (one launch, counted in
+    ``quantize_int8.launches``), CPU tensors the plain version."""
     if x.dtype not in _QUANT_DTYPES:
         raise TypeError(f"quantize_int8 takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
@@ -110,24 +117,7 @@ def quantize_int8(x: torch.Tensor, s_in: float, channels: Optional[int] = None) 
     pad = channels is not None and channels != c
     if pad and (channels % 16 or channels < c or x.dim() == 0):
         raise ValueError(f"quantize_int8 pads {c} channels to a multiple of 16 at least as large, not {channels}")
-    if x.device.type == "cpu":
-        q = quantize_int8_plain(x, s_in)
-        return F.pad(q, (0, channels - c)) if pad else q
-    if x.device.type != "cuda":
-        raise RuntimeError(f"quantize_int8: no kernel for device {x.device}")
-    q = torch.empty(x.shape[:-1] + (channels,) if pad else x.shape, dtype=torch.int8, device=x.device)
-    if x.numel():
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        lib = _kernels.library()
-        if pad:
-            status = lib.caesar_quantize_int8_pad(x.data_ptr(), q.data_ptr(), x.numel() // c, c, channels,
-                                                  _QUANT_DTYPES[x.dtype], float(s_in), stream)
-        else:
-            status = lib.caesar_quantize_int8(x.data_ptr(), q.data_ptr(), x.numel(), _QUANT_DTYPES[x.dtype],
-                                              float(s_in), stream)
-        _kernels.check(status, "caesar_quantize_int8")
-        quantize_int8.launches += 1
-    return q
+    return library.ops.quantize_int8(x, float(s_in), channels)
 
 
 quantize_int8.launches = 0
@@ -241,88 +231,6 @@ def conv_plan(m: int, n: int, kdim: int, cin: int, aligned: bool = True, sms: in
     return ConvPlan("wgmma", *_tiles(m, n, kdim, sms))
 
 
-_WEIGHT_MAPS: Dict[tuple, ctypes.Array] = {}
-_SPLIT_COUNTERS: Dict[tuple, torch.Tensor] = {}
-
-
-def _weight_map(w: torch.Tensor, kdim: int, cout: int, bn: int) -> ctypes.Array:
-    """The TMA descriptor of packed weights, encoded once per (device,
-    address, shape, tile): it holds no data, so it stays right for any
-    tensor at that address."""
-    key = (w.device.index, w.data_ptr(), kdim, cout, bn)
-    tmap = _WEIGHT_MAPS.get(key)
-    if tmap is None:
-        if len(_WEIGHT_MAPS) > 4096:
-            _WEIGHT_MAPS.clear()
-        tmap = ctypes.create_string_buffer(128)
-        _kernels.check(_kernels.library().caesar_conv_int8_weight_map(tmap, w.data_ptr(), kdim, cout, bn),
-                       "caesar_conv_int8_weight_map")
-        _WEIGHT_MAPS[key] = tmap
-    return tmap
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    """The card's SMs: the Hopper kernel's persistent blocks."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _split_counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
-    """Zeroed split-K counters, one per output tile, per device and stream
-    (each launch leaves them zeroed, and launches on one stream run in
-    order)."""
-    key = (device.index, stream)
-    t = _SPLIT_COUNTERS.get(key)
-    if t is None or t.numel() < tiles:
-        t = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
-        _SPLIT_COUNTERS[key] = t
-    return t
-
-
-def _conv_cuda(xq, w, sw, b, stride, pads, relu, ho, wo, mode: str, s_next, route: Optional[str]):
-    bsz, h, wd, c = xq.shape
-    cout, k = w.shape[0], w.shape[1]
-    m, kdim = bsz * ho * wo, k * k * c
-    aligned = xq.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    sms = _sm_count(xq.device)
-    plan = conv_plan(m, cout, kdim, c, aligned, sms)
-    if route == "mma":
-        plan = ConvPlan("mma", 128, 1)
-    elif route not in (None, plan.route):
-        raise ValueError(f"conv2d_int8: the {route} route takes 16 | Cin and 16-byte aligned tensors "
-                         f"(Cin {c}, aligned {aligned})")
-    out = torch.empty((bsz, ho, wo, cout), dtype=_OUT_DTYPES[mode], device=xq.device)
-    stream = torch.cuda.current_stream(xq.device).cuda_stream
-    lib = _kernels.library()
-    sw_p, b_p = (0, 0) if mode == "raw" else (sw.data_ptr(), b.data_ptr())
-    s = 0.0 if s_next is None else float(s_next)
-    if plan.route == "wgmma":
-        tmap = _weight_map(w, kdim, cout, plan.bn)
-        ws = counters = None
-        if plan.splits > 1:
-            tiles = -(-m // TILE_M) * -(-cout // plan.bn)
-            ws = torch.empty(plan.splits * tiles * TILE_M * plan.bn, dtype=torch.int32, device=xq.device)
-            counters = _split_counters(xq.device, stream, tiles)
-        status = lib.caesar_conv2d_int8_wgmma(
-            xq.data_ptr(), tmap, sw_p, b_p, out.data_ptr(), 0 if ws is None else ws.data_ptr(),
-            0 if counters is None else counters.data_ptr(), bsz, h, wd, c, ho, wo, cout, k, stride, pads[0][0],
-            pads[1][0], int(relu), _MODES[mode], s, plan.bn, plan.splits, sms, stream,
-        )
-        _kernels.check(status, "caesar_conv2d_int8_wgmma")
-    else:
-        # 16-byte loads where every (ky, kx) tap is whole 16-byte chunks;
-        # byte loads otherwise (Cin not a multiple of 16, unaligned tensors)
-        vec = c % 16 == 0 and aligned
-        status = lib.caesar_conv2d_int8(
-            xq.data_ptr(), w.data_ptr(), sw_p, b_p, out.data_ptr(), bsz, h, wd, c, ho, wo, cout, k, stride,
-            pads[0][0], pads[1][0], int(relu), _MODES[mode], s, int(vec), stream,
-        )
-        _kernels.check(status, "caesar_conv2d_int8")
-    conv2d_int8.launches += 1
-    conv2d_int8.route_launches[plan.route] += 1
-    return out
-
-
 def conv2d_int8(xq, w, sw, b, stride: int, pads: Pads, relu: bool = False, s_next: Optional[float] = None,
                 route: Optional[str] = None) -> torch.Tensor:
     """int8 convolution with the f32 epilogue: NHWC int8 ``xq`` [B, H, W,
@@ -331,18 +239,16 @@ def conv2d_int8(xq, w, sw, b, stride: int, pads: Pads, relu: bool = False, s_nex
     Ho, Wo, Cout]; with ``s_next`` (the scale of the one convolution that
     reads this output) that value quantized at ``s_next``, int8 NHWC.
     ``pads`` is ((top, bottom), (left, right)), from :func:`xla_pads`.
-    CUDA tensors run a kernel of ``csrc/conv_int8.cu`` on the route
+    Through ``caesar::conv2d_int8``: CUDA tensors run a kernel of ``csrc/conv_int8.cu`` on the route
     :func:`conv_plan` picks (``route`` "mma" forces the ``mma.sync`` kernel; "wgmma"
     raises where the Hopper kernel does not take the shape), one launch,
     counted in ``conv2d_int8.launches`` and ``.route_launches``; CPU
     tensors the plain version."""
-    ho, wo = _check_conv(xq, w, stride, pads, sw, b)
-    if xq.device.type == "cpu":
-        return conv2d_int8_plain(xq, w, sw, b, stride, pads, relu, s_next)
-    if xq.device.type != "cuda":
-        raise RuntimeError(f"conv2d_int8: no kernel for device {xq.device}")
-    mode = "f32" if s_next is None else "q8"
-    return _conv_cuda(xq, w, sw, b, stride, pads, relu, ho, wo, mode, s_next, route)
+    if sw is None or b is None:
+        raise ValueError("conv2d_int8 takes its scales and biases (conv2d_int8_accumulate gives the sums alone)")
+    _check_conv(xq, w, stride, pads, sw, b)
+    s_next = None if s_next is None else float(s_next)
+    return library.ops.conv2d_int8(xq, w, sw, b, stride, _flat(pads), relu, s_next, route)
 
 
 conv2d_int8.launches = 0
@@ -355,9 +261,5 @@ def conv2d_int8_accumulate(xq: torch.Tensor, w: torch.Tensor, stride: int, pads:
     :func:`conv2d_int8` with its epilogue off on CUDA tensors (counted as
     it counts), the plain sums on CPU tensors. The checks on the card
     compare these; the detect graph calls :func:`conv2d_int8`."""
-    ho, wo = _check_conv(xq, w, stride, pads)
-    if xq.device.type == "cpu":
-        return conv2d_int8_accumulate_plain(xq, w, stride, pads)
-    if xq.device.type != "cuda":
-        raise RuntimeError(f"conv2d_int8: no kernel for device {xq.device}")
-    return _conv_cuda(xq, w, None, None, stride, pads, False, ho, wo, "raw", None, route)
+    _check_conv(xq, w, stride, pads)
+    return library.ops.conv2d_int8(xq, w, None, None, stride, _flat(pads), False, None, route)

@@ -10,13 +10,17 @@ also compute:
 * each sample is a 4-tap bilinear read; samples outside the map read 0.
 
 Feature maps are NHWC ``[B, H, W, C]`` (a ``permute(0, 2, 3, 1)`` of a
-channels_last NCHW tensor, which needs no copy). :func:`roi_align` runs
-``csrc/roi_align.cu`` for CUDA tensors and :func:`roi_align_plain` for CPU
-tensors; both sum the four taps in f32 and round once to the feature dtype.
-Its gradient in the levels, :func:`roi_align_backward`, is the second
-kernel of ``csrc/roi_align.cu`` (plain version: autograd through
-:func:`roi_align_plain`). :func:`crop_and_resize`, the mask-target crop of
-training, samples the same way on one GT mask channel per box
+channels_last NCHW tensor, which needs no copy). Each wrapper here checks
+its inputs and calls an operator of the ``caesar`` namespace
+(``library.py``), which runs the kernel for CUDA tensors and the plain
+version for CPU tensors. :func:`roi_align` (``caesar::roi_align``:
+``csrc/roi_align.cu`` or :func:`roi_align_plain`) sums the four taps in f32
+and rounds once to the feature dtype. Its gradient in the levels,
+:func:`roi_align_backward` (``caesar::roi_align_backward``), is the second
+kernel of ``csrc/roi_align.cu`` (plain version:
+:func:`roi_align_backward_plain`, the taps' weighted sums in f32).
+:func:`crop_and_resize` (``caesar::crop_and_resize``), the mask-target crop
+of training, samples the same way on one GT mask channel per box
 (``csrc/crop_and_resize.cu``).
 
 On the card each call is one kernel launch and nothing else: both ROIAlign
@@ -36,7 +40,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import _kernels
+from . import library
 
 
 def roi_levels(boxes: torch.Tensor, image_area: float, num_levels: int = 4) -> torch.Tensor:
@@ -62,27 +66,21 @@ def _sample_coords(lo: torch.Tensor, hi: torch.Tensor, extent_m1: torch.Tensor, 
     return (0.5 * (lo + hi) * extent_m1)[..., None]
 
 
-def roi_align_plain(
-    features: Sequence[torch.Tensor],
-    boxes: torch.Tensor,
-    image_shape: Tuple[int, int],
-    pool: int,
-) -> torch.Tensor:
-    """Plain PyTorch multilevel ROIAlign (any device): [B, N, pool, pool, C].
-    Sums in f32 (f64 for f64 levels); differentiable in the levels."""
-    b, n = boxes.shape[:2]
-    c = features[0].shape[-1]
-    dtype = features[0].dtype
+def _taps(level_shapes: Sequence[Tuple[int, int]], boxes: torch.Tensor, image_shape: Tuple[int, int], pool: int):
+    """The four bilinear taps of every sample: ([(row, weight)] * 4, rows),
+    each row [B, N, pool, pool] an index into the levels flattened to
+    ``[B * sum(H_l W_l) + 1, C]`` (image by image, P2 first; samples outside
+    the map read the last, a zero row, ``rows``), each weight [B, N, pool,
+    pool, 1] f32."""
+    b = boxes.shape[0]
     dev = boxes.device
-    shapes = torch.tensor([f.shape[1:3] for f in features], dtype=torch.int64)
+    shapes = torch.tensor([tuple(s) for s in level_shapes], dtype=torch.int64)
     sizes = shapes[:, 0] * shapes[:, 1]
     level_off = torch.cat([torch.zeros(1, dtype=torch.int64), sizes.cumsum(0)])
     per_img = int(level_off[-1])
-    flat = torch.cat([f.reshape(b, -1, c) for f in features], dim=1).reshape(b * per_img, c)
-    flat = torch.cat([flat, flat.new_zeros(1, c)])
-    zero_row = flat.shape[0] - 1
+    zero_row = b * per_img
 
-    levels = roi_levels(boxes, float(image_shape[0] * image_shape[1]), len(features)).long()
+    levels = roi_levels(boxes, float(image_shape[0] * image_shape[1]), len(level_shapes)).long()
     lvl_h = shapes[:, 0].to(dev, torch.float32)[levels]  # [B, N]
     lvl_w = shapes[:, 1].to(dev, torch.float32)[levels]
     base = level_off[:-1].to(dev)[levels] + (torch.arange(b, device=dev) * per_img)[:, None]
@@ -100,19 +98,37 @@ def roi_align_plain(
     in_x, x0, x1, wx = axis(boxes[..., 1], boxes[..., 3], lvl_w)
     ok = in_y[..., :, None] & in_x[..., None, :]  # [B, N, P, P]
     wi = lvl_w.long()[..., None, None]
-    acc = torch.float64 if dtype == torch.float64 else torch.float32
 
-    def tap(yi, xi):
+    def row(yi, xi):
         idx = base[..., None, None] + yi[..., :, None] * wi + xi[..., None, :]
-        idx = torch.where(ok, idx, torch.full_like(idx, zero_row))
-        return flat[idx.reshape(-1)].reshape(b, n, pool, pool, c).to(acc)
+        return torch.where(ok, idx, torch.full_like(idx, zero_row))
 
     wy, wx = wy[..., :, None], wx[..., None, :]
-    w00 = ((1 - wy) * (1 - wx))[..., None]
-    w01 = ((1 - wy) * wx)[..., None]
-    w10 = (wy * (1 - wx))[..., None]
-    w11 = (wy * wx)[..., None]
-    out = tap(y0, x0) * w00 + tap(y0, x1) * w01 + tap(y1, x0) * w10 + tap(y1, x1) * w11
+    taps = [(row(y0, x0), (1 - wy) * (1 - wx)), (row(y0, x1), (1 - wy) * wx),
+            (row(y1, x0), wy * (1 - wx)), (row(y1, x1), wy * wx)]
+    return [(r, w[..., None]) for r, w in taps], zero_row
+
+
+def roi_align_plain(
+    features: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    image_shape: Tuple[int, int],
+    pool: int,
+) -> torch.Tensor:
+    """Plain PyTorch multilevel ROIAlign (any device): [B, N, pool, pool, C].
+    Sums the four taps in f32 (f64 for f64 levels) and rounds once;
+    differentiable in the levels."""
+    b, n = boxes.shape[:2]
+    c = features[0].shape[-1]
+    dtype = features[0].dtype
+    taps, _ = _taps([f.shape[1:3] for f in features], boxes, image_shape, pool)
+    flat = torch.cat([f.reshape(b, -1, c) for f in features], dim=1).reshape(-1, c)
+    flat = torch.cat([flat, flat.new_zeros(1, c)])
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    out = None
+    for idx, w in taps:
+        term = flat[idx.reshape(-1)].reshape(b, n, pool, pool, c).to(acc) * w
+        out = term if out is None else out + term
     return out.to(dtype)
 
 
@@ -148,48 +164,6 @@ def _vector_bytes(features, c: int, itemsize: int) -> int:
     raise ValueError(f"roi_align kernel needs levels aligned to {2 * itemsize} bytes")
 
 
-def _roi_align_cuda(features, boxes, image_shape, pool):
-    b, n = boxes.shape[:2]
-    c = features[0].shape[-1]
-    dtype = features[0].dtype
-    _check_kernel_shapes("roi_align", dtype, c, pool, len(features))
-    for f in features:
-        if not f.is_contiguous():
-            raise ValueError("roi_align kernel needs contiguous NHWC levels")
-        if f.shape[1] * f.shape[2] * c >= 2**31:
-            raise ValueError("roi_align kernel needs each level's image below 2^31 elements")
-    vector = _vector_bytes(features, c, features[0].element_size())
-    out = torch.empty((b, n, pool, pool, c), dtype=dtype, device=boxes.device)
-    hw = [int(d) for f in features for d in f.shape[1:3]]
-    status = _kernels.library().caesar_roi_align(
-        *(f.data_ptr() for f in features), *hw, b, c, boxes.data_ptr(), n, pool,
-        _level_inv_denom(image_shape), _DTYPES[dtype], vector, out.data_ptr(),
-        torch.cuda.current_stream(boxes.device).cuda_stream,
-    )
-    _kernels.check(status, "caesar_roi_align")
-    roi_align.launches += 1
-    return out
-
-
-class _RoiAlignCuda(torch.autograd.Function):
-    """The forward kernel with the backward kernel as its gradient; both
-    find each box's level themselves. Boxes carry no gradient (the training
-    graph detaches its ROIs)."""
-
-    @staticmethod
-    def forward(ctx, boxes, image_shape, pool, *features):
-        ctx.save_for_backward(boxes)
-        ctx.image_shape = image_shape
-        ctx.level_shapes = [tuple(f.shape[1:3]) for f in features]
-        return _roi_align_cuda(features, boxes, image_shape, pool)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (boxes,) = ctx.saved_tensors
-        grads = roi_align_backward(grad.contiguous(), boxes, ctx.level_shapes, ctx.image_shape)
-        return (None, None, None, *grads)
-
-
 def roi_align(
     features: Sequence[torch.Tensor],
     boxes: torch.Tensor,
@@ -204,11 +178,12 @@ def roi_align(
       image_shape: (H, W) of the network input, for the level rule.
       pool: output size.
 
-    Returns [B, N, pool, pool, C] in the feature dtype. CUDA tensors run the
-    kernel alone (one launch, counted in ``roi_align.launches``: it finds
-    each box's level itself), and its gradient runs
-    :func:`roi_align_backward`'s kernel; CPU tensors run the plain version
-    and autograd through it.
+    Returns [B, N, pool, pool, C] in the feature dtype, from
+    ``caesar::roi_align``: CUDA tensors run the kernel alone (one launch,
+    counted in ``roi_align.launches``: it finds each box's level itself),
+    CPU tensors the plain version. Its gradient in the levels is
+    ``caesar::roi_align_backward`` (:func:`roi_align_backward`); the boxes
+    get none.
     """
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
         raise ValueError(f"boxes must be float32 [B, N, 4], got {boxes.dtype} {tuple(boxes.shape)}")
@@ -218,11 +193,9 @@ def roi_align(
             raise ValueError(f"level {tuple(f.shape)} does not match [B={b}, H, W, C={c}]")
         if f.device != boxes.device or f.dtype != features[0].dtype:
             raise ValueError("levels and boxes must share one device; levels one dtype")
-    if boxes.device.type == "cpu":
-        return roi_align_plain(features, boxes, image_shape, pool)
-    if boxes.device.type != "cuda":
-        raise RuntimeError(f"roi_align: no kernel for device {boxes.device}")
-    return _RoiAlignCuda.apply(boxes.detach().contiguous(), tuple(image_shape), pool, *features)
+        if not f.is_contiguous():
+            raise ValueError("roi_align takes contiguous NHWC levels")
+    return library.ops.roi_align(list(features), boxes.detach(), [int(v) for v in image_shape], pool)
 
 
 roi_align.launches = 0
@@ -237,38 +210,21 @@ def roi_align_backward_plain(
     level_shapes: Sequence[Tuple[int, int]],
     image_shape: Tuple[int, int],
 ) -> List[torch.Tensor]:
-    """Gradient of :func:`roi_align_plain` in the levels, by autograd
-    (any device): one [B, H_l, W_l, C] tensor per level, in grad_out's
-    dtype. At f64 it is the exact sum of ``grad * w_tap``."""
-    b, _, pool, _, c = grad_out.shape
-    feats = [
-        torch.zeros((b, h, w, c), dtype=grad_out.dtype, device=grad_out.device, requires_grad=True)
-        for h, w in level_shapes
-    ]
-    with torch.enable_grad():
-        out = roi_align_plain(feats, boxes, image_shape, pool)
-        return list(torch.autograd.grad(out, feats, grad_out))
-
-
-def _roi_align_backward_cuda(grad_out, boxes, level_shapes, image_shape):
+    """Gradient of :func:`roi_align_plain` in the levels (any device): one
+    [B, H_l, W_l, C] tensor per level, in grad_out's dtype. Each tap's
+    ``grad * weight`` summed into its level pixel in f32 (f64 at f64, where
+    it is the exact sum) and rounded once, as the kernel does."""
     b, n, pool, _, c = grad_out.shape
-    dtype = grad_out.dtype
-    _check_kernel_shapes("roi_align_backward", dtype, c, pool, len(level_shapes))
-    if grad_out.data_ptr() % 16:
-        raise ValueError("roi_align_backward kernel needs a 16-byte aligned grad_out")
-    sizes = [b * h * w * c for h, w in level_shapes]
-    scratch = torch.zeros(sum(sizes), dtype=torch.float32, device=grad_out.device)
-    if n:  # no box, no gradient: nothing to launch
-        hw = [int(d) for shape in level_shapes for d in shape]
-        status = _kernels.library().caesar_roi_align_backward(
-            *(g.data_ptr() for g in scratch.split(sizes)), *hw, b, c, boxes.data_ptr(), n, pool,
-            _level_inv_denom(image_shape), _DTYPES[dtype], grad_out.data_ptr(),
-            torch.cuda.current_stream(grad_out.device).cuda_stream,
-        )
-        _kernels.check(status, "caesar_roi_align_backward")
-        roi_align_backward.launches += 1
-    flat = scratch if dtype == torch.float32 else scratch.to(dtype)  # one cast for all levels
-    return [g.view(b, h, w, c) for g, (h, w) in zip(flat.split(sizes), level_shapes)]
+    taps, zero_row = _taps(level_shapes, boxes, image_shape, pool)
+    acc = torch.float64 if grad_out.dtype == torch.float64 else torch.float32
+    g = grad_out.to(acc)
+    total = torch.zeros(zero_row + 1, c, dtype=acc, device=grad_out.device)
+    for idx, w in taps:
+        total.index_add_(0, idx.reshape(-1), (g * w).reshape(-1, c))
+    per_img = total[:zero_row].view(b, -1, c)
+    sizes = [int(h) * int(w) for h, w in level_shapes]
+    return [lvl.reshape(b, int(h), int(w), c).to(grad_out.dtype)
+            for lvl, (h, w) in zip(per_img.split(sizes, dim=1), level_shapes)]
 
 
 def roi_align_backward(
@@ -285,11 +241,12 @@ def roi_align_backward(
       level_shapes: (H_l, W_l) of P2..P5.
       image_shape: (H, W) of the network input, for the level rule.
 
-    Returns one [B, H_l, W_l, C] gradient per level, in grad_out's dtype.
-    CUDA tensors run the kernel (one launch, counted in
+    Returns one [B, H_l, W_l, C] gradient per level, in grad_out's dtype:
+    views of the one flat tensor of ``caesar::roi_align_backward``. CUDA
+    tensors run the kernel (one launch, counted in
     ``roi_align_backward.launches``; none for zero boxes), which finds each
-    box's level itself: f32 atomic sums rounded once to the dtype. CPU tensors run
-    :func:`roi_align_backward_plain`.
+    box's level itself: f32 atomic sums rounded once to the dtype. CPU
+    tensors run :func:`roi_align_backward_plain`.
     """
     if grad_out.dim() != 5 or grad_out.shape[2] != grad_out.shape[3]:
         raise ValueError(f"grad_out must be [B, N, pool, pool, C], got {tuple(grad_out.shape)}")
@@ -297,12 +254,11 @@ def roi_align_backward(
         raise ValueError(f"boxes {boxes.dtype} {tuple(boxes.shape)} do not match grad_out")
     if boxes.device != grad_out.device:
         raise ValueError("grad_out and boxes must share one device")
-    if grad_out.device.type == "cpu":
-        return roi_align_backward_plain(grad_out, boxes, level_shapes, image_shape)
-    if grad_out.device.type != "cuda":
-        raise RuntimeError(f"roi_align_backward: no kernel for device {grad_out.device}")
-    return _roi_align_backward_cuda(grad_out.contiguous(), boxes.contiguous(), [tuple(s) for s in level_shapes],
-                                    image_shape)
+    b, c = grad_out.shape[0], grad_out.shape[-1]
+    shapes = [(int(h), int(w)) for h, w in level_shapes]
+    flat = library.ops.roi_align_backward(grad_out, boxes, [d for s in shapes for d in s],
+                                          [int(v) for v in image_shape])
+    return [g.view(b, h, w, c) for g, (h, w) in zip(flat.split([b * h * w * c for h, w in shapes]), shapes)]
 
 
 roi_align_backward.launches = 0
@@ -357,8 +313,9 @@ def crop_and_resize(
         int64 on the card).
       crop_size: (ph, pw), each at least 2.
 
-    Returns [B, R, ph, pw] float32; samples outside the map read 0. CUDA
-    tensors run ``csrc/crop_and_resize.cu`` alone (one launch, counted in
+    Returns [B, R, ph, pw] float32; samples outside the map read 0, from
+    ``caesar::crop_and_resize``: CUDA tensors run
+    ``csrc/crop_and_resize.cu`` alone (one launch, counted in
     ``crop_and_resize.launches``), which reads each distinct tap of the
     assigned channel once per box, in place; a block's shared memory, 16 ph
     pw + 24 (ph + pw) + 4 (H + W) bytes, must fit 227 KB. CPU tensors run
@@ -374,24 +331,7 @@ def crop_and_resize(
     ph, pw = (int(v) for v in crop_size)
     if ph < 2 or pw < 2:
         raise ValueError(f"crop_size must be at least 2x2, got {crop_size}")
-    if masks.device.type == "cpu":
-        return crop_and_resize_plain(masks, boxes, assign, (ph, pw))
-    if masks.device.type != "cuda":
-        raise RuntimeError(f"crop_and_resize: no kernel for device {masks.device}")
-    if assign.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"crop_and_resize kernel takes int32 or int64 assign, got {assign.dtype}")
-    masks = masks.contiguous()
-    boxes = boxes.contiguous()
-    assign = assign.contiguous()
-    out = torch.empty((b, r, ph, pw), dtype=torch.float32, device=masks.device)
-    _, h, w, g = masks.shape
-    status = _kernels.library().caesar_crop_and_resize(
-        masks.data_ptr(), b, h, w, g, boxes.data_ptr(), assign.data_ptr(), assign.element_size(), r, ph, pw,
-        out.data_ptr(), torch.cuda.current_stream(masks.device).cuda_stream,
-    )
-    _kernels.check(status, "caesar_crop_and_resize")
-    crop_and_resize.launches += 1
-    return out
+    return library.ops.crop_and_resize(masks, boxes, assign, [ph, pw])
 
 
 crop_and_resize.launches = 0

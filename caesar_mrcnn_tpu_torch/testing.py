@@ -1,5 +1,6 @@
 """Comparison of two detectors' per-image results that allows for near ties,
-of two source catalogs, and the weights that make detectors comparable.
+of two source catalogs, the weights that make detectors comparable, and
+the kernel operators' ``opcheck`` cases (:func:`op_cases`).
 
 Random weights make near-tied detection scores common, and two detectors
 whose arithmetic differs in the last bits (JAX against PyTorch, or the card
@@ -145,3 +146,46 @@ def catalog_differences(ref: Dict, got: Dict, rtol: float = 0.0, score_atol: flo
 
     walk(ref, got, "catalog", False)
     return out
+
+
+def op_cases(device) -> List[Tuple[str, object, tuple]]:
+    """(label, operator, arguments) of every ``caesar`` operator at small
+    seeded shapes on ``device``, for ``torch.library.opcheck``: NMS with
+    invalid boxes, ROIAlign with levels that take a gradient, its backward,
+    the crop, the quantizer plain and padding 3 channels to 16, and the
+    int8 convolution's three epilogues (int32 sums, f32 with ReLU, int8 at
+    the next site's scale). Inputs are contiguous, as the wrappers pass
+    them, and 16-byte aligned, as the kernels take them."""
+    from .ops.library import ops
+
+    rng = np.random.RandomState(0)
+
+    def t(a, dtype=None, grad=False):
+        x = torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+        return x.requires_grad_() if grad else x
+
+    y1, x1 = rng.uniform(0, 0.7, (2, 2, 6))
+    h, w = rng.uniform(0.05, 0.3, (2, 2, 6))
+    boxes = t(np.stack([y1, x1, y1 + h, x1 + w], -1).astype(np.float32))
+    scores = rng.uniform(0, 1, (2, 6)).astype(np.float32)
+    scores[:, 1] = -np.inf
+    levels = [t(rng.randn(2, s, s, 4).astype(np.float32), grad=True) for s in (16, 8, 4, 2)]
+    shapes = [s for s in (16, 8, 4, 2) for _ in range(2)]
+    xq = t(rng.randint(-127, 128, (2, 6, 6, 16)).astype(np.int8))
+    wq = t(rng.randint(-127, 128, (8, 3, 3, 16)).astype(np.int8))
+    sw = t(rng.uniform(1e-4, 1e-3, 8).astype(np.float32))
+    bias = t(rng.uniform(-1, 1, 8).astype(np.float32))
+    return [
+        ("nms", ops.nms.default, (boxes, t(scores), 4, 0.5)),
+        ("roi_align", ops.roi_align.default, (levels, boxes, [64, 64], 3)),
+        ("roi_align_backward", ops.roi_align_backward.default,
+         (t(rng.randn(2, 6, 3, 3, 4).astype(np.float32)), boxes, shapes, [64, 64])),
+        ("crop_and_resize", ops.crop_and_resize.default,
+         (t(rng.uniform(0, 1, (2, 16, 16, 3)).astype(np.float32)), boxes, t(rng.randint(0, 3, (2, 6))), [4, 5])),
+        ("quantize_int8", ops.quantize_int8.default, (t(rng.randn(2, 4, 4, 16).astype(np.float32)), 0.02, None)),
+        ("quantize_int8 3 -> 16 channels", ops.quantize_int8.default,
+         (t(rng.randn(2, 4, 4, 3).astype(np.float32)), 0.02, 16)),
+        ("conv2d_int8 int32 sums", ops.conv2d_int8.default, (xq, wq, None, None, 1, [1, 1, 1, 1], False, None, None)),
+        ("conv2d_int8 f32", ops.conv2d_int8.default, (xq, wq, sw, bias, 2, [0, 1, 0, 1], True, None, None)),
+        ("conv2d_int8 int8", ops.conv2d_int8.default, (xq, wq, sw, bias, 1, [1, 1, 1, 1], True, 0.05, None)),
+    ]

@@ -69,7 +69,18 @@ Phases, one line each:
    the card (f32, 256^2, batch 2): the int8 pyramid on the card equal to the
    CPU's bit for bit, and ``SFinder.run_tiled`` with pinned heads over a
    seeded 512^2 mosaic (4 tiles) giving the same catalog on both;
-12. cli: the system's own entry point, ``caesar_mrcnn_tpu_torch.cli.run.main``,
+12. export: the serving export (``inference/export.py``) of the serving
+   flagship's bf16 graph and of its int8 graph (calibrated on the first
+   batch of the 16 tiles, as ``serving:`` does): export, save and load
+   seconds, the artifact's MB and its ``caesar::`` nodes; each artifact
+   loaded by ``ServingDetector`` in a fresh process that imports nothing of
+   ``models/``, which runs the program once on a molded batch of 8
+   (launches: 2 NMS and 2 ROIAlign, and 123 ``conv2d_int8`` on the Hopper
+   route and 53 ``quantize_int8`` in the int8 graph; the outputs bit for
+   bit against ``Detector._step``'s on the same batch, or within 1 bf16
+   ulp for the bf16 graph) and detects on the 16 tiles
+   (``ServingDetector.detect`` img/s beside ``Detector.detect``'s);
+13. cli: the system's own entry point, ``caesar_mrcnn_tpu_torch.cli.run.main``,
    in-process on the card (its default ``--device cuda``), at the CLI's
    default widths (ResNet-101, bf16, 6000 pre-NMS, 2000/1000 post-NMS, 512
    ROIs, 300 GT): ``train`` (10 Adam steps at 256^2, batch 8, on the 16
@@ -82,8 +93,8 @@ Phases, one line each:
    losses.
 
 Then the card's name and power limit, one JSON line with the kernels'
-record (launches on the main paths: detect, catalog, train, serving and
-cli; error,
+record (launches on the main paths: detect, catalog, train, serving,
+export and cli; error,
 kernel, plain and bound times summed over the cases; ``library_ms`` null,
 with the reason beside it, but for the int8 convolution: ``torch._int_mm``
 at the sites where one matrix product computes its int32 sums), and as the
@@ -431,6 +442,7 @@ def check_conv_int8(dev, card_name: str):
 
     from caesar_mrcnn_tpu_torch import kernel_bench as kb
     from caesar_mrcnn_tpu_torch.models.backbone_int8 import pad_input_channels
+    from caesar_mrcnn_tpu_torch.ops import library as L
     from caesar_mrcnn_tpu_torch.ops import quant as Q
 
     rec = _record()
@@ -518,16 +530,23 @@ def check_conv_int8(dev, card_name: str):
                 f"plain f32" if fused else "f32 bit-equal")
         extra = ""
         if name == "fpn/c5p5":  # the host's share: wrapper calls enqueued back to back (split-K: a scratch tile too)
+            def direct():  # the wrapper's checks, then the CUDA implementation: the call without the dispatcher
+                Q._check_conv(xh, wh, site.stride, site.pads, sw, b)
+                return L._conv2d_int8_cuda(xh, wh, sw, b, site.stride, Q._flat(site.pads), site.relu, s_next, None)
+
             host = {}
-            for label, fn in (("Hopper", hopper), ("mma.sync", previous), ("Hopper again", hopper)):
+            for label, fn in (("Hopper", hopper), ("direct", direct), ("mma.sync", previous), ("Hopper again", hopper),
+                              ("direct again", direct)):
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 for _ in range(200):
                     fn()
                 host[label] = (time.perf_counter() - t) / 200 * 1e3
                 torch.cuda.synchronize()
-            extra = (f"; host time per wrapper call (200 enqueued, host clock): Hopper route {host['Hopper']:.4f} / "
-                     f"{host['Hopper again']:.4f} ms, the mma.sync route {host['mma.sync']:.4f} ms")
+            extra = (f"; host time per wrapper call through torch.ops.caesar.conv2d_int8 (200 enqueued, host clock): "
+                     f"Hopper route {host['Hopper']:.4f} / {host['Hopper again']:.4f} ms, the mma.sync route "
+                     f"{host['mma.sync']:.4f} ms; the wrapper's checks and the CUDA implementation without the "
+                     f"dispatcher {host['direct']:.4f} / {host['direct again']:.4f} ms")
         if fused:
             extra += f"; the unfused pair on the mma.sync route (f32 conv, then quantize_int8) {unfused_ms[0]:.4f} ms"
         print(f"kernels: conv2d_int8 {name} {site.k}x{site.k}/{site.stride} [{site.batch},{site.h},{site.w},"
@@ -1093,6 +1112,141 @@ def check_serving_parity(card_name: str) -> None:
         raise AssertionError("serving parity: card and CPU catalogs differ:\n" + "\n".join(diffs[:20]))
 
 
+# ------------------------------------------------------------------- export
+
+# Run in a fresh process: load an exported artifact with ServingDetector (the
+# model code is never imported), run the program once on the molded batch
+# (launches counted), save its raw outputs, then detect on the 16 tiles.
+EXPORT_SERVE = r"""
+import json, sys, time
+import numpy as np
+import torch
+from caesar_mrcnn_tpu_torch.inference.export import ServingDetector, caesar_nodes
+from caesar_mrcnn_tpu_torch.ops import nms, quant, roi_align
+
+path, molded_path, tiles_path, raw_path = sys.argv[1:5]
+t = time.perf_counter()
+srv = ServingDetector(path)
+load_s = time.perf_counter() - t
+counters = {"nms": nms.nms_padded, "roi_align": roi_align.roi_align, "conv2d_int8": quant.conv2d_int8,
+            "quantize_int8": quant.quantize_int8}
+for k in counters.values():
+    k.launches = 0
+quant.conv2d_int8.route_launches = {"wgmma": 0, "mma": 0}
+molded = torch.load(molded_path).cuda()
+torch.cuda.synchronize()
+with torch.no_grad():
+    detections, masks = srv._module(molded)
+torch.cuda.synchronize()
+launches = {name: k.launches for name, k in counters.items()}
+routes = dict(quant.conv2d_int8.route_launches)
+torch.save({"detections": detections.cpu(), "masks": masks.cpu()}, raw_path)
+images = [np.repeat(t[..., None], 3, -1).astype(np.float32) for t in np.load(tiles_path)]
+bs = srv.batch_size
+first = srv.detect(images[:bs])
+t = time.perf_counter()
+results = [r for s in range(0, len(images), bs) for r in srv.detect(images[s:s + bs])]
+img_s = len(images) / (time.perf_counter() - t)
+for r in first + results:
+    n = len(r["class_ids"])
+    assert r["masks"].shape == (512, 512, n) and r["rois"].shape == (n, 4), (r["masks"].shape, r["rois"].shape)
+    assert np.isfinite(r["scores"]).all()
+models = sorted(m for m in sys.modules
+                if m.startswith(tuple("caesar_mrcnn_tpu_torch." + n for n in ("models", "config", "weights"))))
+print(json.dumps({"load_s": load_s, "nodes": caesar_nodes(srv.program), "launches": launches, "routes": routes,
+                  "img_s": img_s, "detections": [len(r["class_ids"]) for r in results], "models": models}))
+"""
+
+
+def check_export(card_name: str) -> dict:
+    """The serving export on the card (module docstring, phase 12): the
+    serving flagship's bf16 graph and its int8 graph (calibrated as
+    ``serving:`` calibrates it, on the first tile batch), each exported
+    (``export_program``), saved (``save_artifact``) and loaded by
+    ``ServingDetector`` in a fresh process that imports nothing of
+    ``models/``. Returns the loaded programs' launches on one batch each."""
+    import subprocess
+    import sys
+
+    import torch
+
+    from caesar_mrcnn_tpu_torch.inference.detector import Detector, build_detector
+    from caesar_mrcnn_tpu_torch.inference.export import export_program, save_artifact
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mosaic.fits")
+        write_mosaic(path)
+        tiles = read_tiles(path, 2048, 512)
+    det8 = build_detector(serving_config(), seed=SEED, device="cuda")
+    settle_random_weights(det8.model)
+    x, metas, anchors = _premold(det8, tiles[:det8.config.batch_size])
+    with torch.inference_mode():
+        det8._quantize_molded(x, metas, anchors)
+    bf16 = Detector(flagship_config(pre_nms_limit=3000, post_nms_rois_inference=512), det8.model, "cuda")
+    images = [np.repeat(t[..., None], 3, -1).astype(np.float32) for t in tiles]
+    per_batch = {"nms": 2, "roi_align": 2, "conv2d_int8": 0, "quantize_int8": 0}
+    total = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        molded_path, tiles_path, raw_path = (os.path.join(tmp, n) for n in ("molded.pt", "tiles.npy", "raw.pt"))
+        torch.save(x.cpu(), molded_path)
+        np.save(tiles_path, tiles)
+        for name, det, expected in (
+                ("bf16", bf16, per_batch),
+                ("int8", det8, {**per_batch, "conv2d_int8": INT8_SITES, "quantize_int8": INT8_QUANTIZERS})):
+            art = os.path.join(tmp, f"{name}.pt2")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            program, sidecar = export_program(det)
+            export_s = time.perf_counter() - t
+            t = time.perf_counter()
+            save_artifact(program, sidecar, art)
+            save_s = time.perf_counter() - t
+            del program
+            live = det._step(x, metas, anchors, len(x))
+            live = {"detections": live.detections.cpu(), "masks": live.masks.cpu()}
+            bs = det.config.batch_size
+            det.detect(images[:bs])
+            t = time.perf_counter()
+            counts = [len(r["class_ids"]) for s in range(0, len(images), bs) for r in det.detect(images[s:s + bs])]
+            live_img_s = len(images) / (time.perf_counter() - t)
+            proc = subprocess.run([sys.executable, "-c", EXPORT_SERVE, art, molded_path, tiles_path, raw_path],
+                                  cwd=root, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"export {name}: the serving process failed:\n{proc.stderr[-4000:]}")
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+            raw = torch.load(raw_path)
+            same = {k: torch.equal(raw[k], live[k]) for k in live}
+            ulps = {k: 0.0 if same[k] else float(((raw[k].float() - live[k].float()).abs()
+                                                  / bf16_ulp(live[k].float().abs())).max()) for k in live}
+            print(f"export: {name} graph of the serving flagship (ResNet-101, FPN 256, 512^2, batch 8, 4 classes, "
+                  f"3000/512 proposals): export {export_s:.2f} s, save {save_s:.2f} s, "
+                  f"{os.path.getsize(art) / 1e6:.1f} MB, load {out['load_s']:.2f} s in a fresh process (models/ "
+                  f"imported there: {out['models']}); caesar:: nodes {out['nodes']} [{card_name}]")
+            print(f"export: {name} loaded program, one batch of 8: launches {out['launches']} (conv2d_int8 routes "
+                  f"{out['routes']}); outputs against Detector._step on the same molded batch: bit for bit "
+                  f"{same}, max difference in bf16 ulps {ulps} [{card_name}]")
+            print(f"export: {name} ServingDetector.detect {out['img_s']:.2f} img/s against Detector.detect "
+                  f"{live_img_s:.2f} img/s on the same 16 tiles (host clock, second pass of two batches, unmold "
+                  f"included); detections per tile {out['detections']} / {counts} [{card_name}]")
+            if out["models"]:
+                raise AssertionError(f"export {name}: the serving process imported {out['models']}")
+            if out["launches"] != expected or out["nodes"] != {k: v for k, v in expected.items() if v}:
+                raise AssertionError(f"export {name}: launches {out['launches']}, nodes {out['nodes']}, "
+                                     f"expected {expected} per batch")
+            if out["routes"] != {"wgmma": expected["conv2d_int8"], "mma": 0}:
+                raise AssertionError(f"export {name}: conv2d_int8 routes {out['routes']}: every site must run the "
+                                     f"Hopper kernel")
+            if not all(same.values()) and (name == "int8" or max(ulps.values()) > 1):
+                raise AssertionError(f"export {name}: the loaded program's outputs differ from Detector._step's "
+                                     f"({same}, bf16 ulps {ulps}; int8 must be bit-equal, bf16 within 1 ulp)")
+            if out["detections"] != counts:
+                raise AssertionError(f"export {name}: detections per tile {out['detections']} against {counts}")
+            for k, v in out["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
 # -------------------------------------------------------------------- train
 
 
@@ -1503,7 +1657,7 @@ def main() -> None:
 
     t = time.perf_counter()
     path, log = _kernels.build()
-    _kernels.library()
+    _kernels.load(path)
     print(f"build: {os.path.relpath(path)} in {time.perf_counter() - t:.1f} s")
     for line in log.splitlines():  # ptxas: each kernel's registers, shared memory, spills and warnings
         if any(w in line for w in ("registers", "Compiling entry", "spill", "arning")):
@@ -1538,11 +1692,15 @@ def main() -> None:
     check_serving_parity(card_name)
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    export = check_export(card_name)
+    print(f"export: phase {time.perf_counter() - t:.2f} s [{card_name}]")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     cli = check_cli(card_name)
     print(f"cli: phase {time.perf_counter() - t:.2f} s [{card_name}]")
     print(f"launches: detect path {detect}, catalog path {catalog}, train path {train}, serving path {serving}, "
-          f"cli {cli}")
-    paths = (detect, catalog, train, serving, cli)
+          f"export path {export}, cli {cli}")
+    paths = (detect, catalog, train, serving, export, cli)
 
     def record(name, source, replaces, rec, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"caesar_mrcnn_tpu_torch/csrc/{source}",

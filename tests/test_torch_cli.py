@@ -14,8 +14,8 @@ package's (``caesar_mrcnn_tpu.cli.run``), on the CPU at small sizes:
   DS9 files, and the tester's tables and dumps, must agree: every value
   equal but the scores, within 1e-5;
 * ``train`` (gradient accumulation, validation) -> resume -> ``test`` ->
-  ``detect`` on the port alone, as ``tests/test_cli_e2e.py`` runs the JAX
-  CLI;
+  ``detect`` -> ``export`` (then a ``ServingDetector`` on the artifact) on
+  the port alone, as ``tests/test_cli_e2e.py`` runs the JAX CLI;
 * what the port refuses, each beside what the JAX CLI does with it.
 """
 
@@ -36,6 +36,7 @@ from caesar_mrcnn_tpu.models.mask_rcnn import MaskRCNN as JaxMaskRCNN
 from caesar_mrcnn_tpu.train import checkpoints as JCK
 from caesar_mrcnn_tpu_torch import weights as W
 from caesar_mrcnn_tpu_torch.cli import run as tcli
+from caesar_mrcnn_tpu_torch.inference.export import ServingDetector
 from caesar_mrcnn_tpu_torch.models import heads_int8 as theads_int8
 from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
 from caesar_mrcnn_tpu_torch.testing import pin_heads
@@ -236,6 +237,15 @@ def test_train_resume_test_detect(workdir):  # noqa: F811 - the fixture
                       "--detect_outfile_json", str(workdir / "cat.json")] + TINY + CPU) == 0
     assert "objs" in json.loads((workdir / "cat.json").read_text())
 
+    # export: the serving artifact from the same checkpoint (tests/test_cli_e2e.py's export leg)
+    art = str(workdir / "detector.pt2")
+    assert tcli.main(["export", "--weights", str(second), "--export_path", art] + TINY + CPU) == 0
+    assert os.path.getsize(art) > 1000 and json.loads(open(art + ".json").read())["device"] == "cpu"
+    srv = ServingDetector(art, device="cpu")
+    assert srv.batch_size == 2
+    out = srv.detect([np.random.RandomState(0).rand(64, 64, 3).astype(np.float32)])
+    assert len(out) == 1 and out[0]["masks"].shape[:2] == (64, 64)
+
 
 def test_train_all_runs_the_port_cli(monkeypatch):
     """The legacy trainer hands its translated argv to the port's CLI."""
@@ -257,8 +267,12 @@ def _jax_config(argv):
 
 REFUSALS = {
     # name: (port argv, what the port raises or None for return code 1, the JAX CLI's behaviour)
-    "export": (["export", "--export_path", "a.stablehlo"], (NotImplementedError, "A15"),
-               lambda: jcli.validate_args(jcli.parse_args(["export", "--export_path", "a"])) == 0),
+    "export serving": (["export", "--export_path", "a.pt2", "--serving"], (NotImplementedError, "calibration images"),
+                       lambda: jcli.validate_args(jcli.parse_args(["export", "--export_path", "a", "--serving"])) == 0
+                       and _jax_config(["export", "--serving"]).quant_mode == "int8"),
+    "export int8": (["export", "--export_path", "a.pt2", "--quant_mode", "int8"],
+                    (NotImplementedError, "calibration images"),
+                    lambda: _jax_config(["export", "--quant_mode", "int8"]).quant_mode == "int8"),
     "ngpu 2": (["detect", "--image", "x.fits", "--ngpu", "2"], (NotImplementedError, "A13"),
                lambda: _jax_config(["detect", "--ngpu", "2"]).num_devices == 2),
     "roi gather fp8": (["detect", "--image", "x.fits", "--roi_gather_dtype", "float8_e4m3fn"],

@@ -13,6 +13,7 @@ import torch
 from caesar_mrcnn_tpu_torch.ops import nms as N
 from caesar_mrcnn_tpu_torch.ops import quant as Q
 from caesar_mrcnn_tpu_torch.ops import roi_align as R
+from caesar_mrcnn_tpu_torch.testing import op_cases
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -559,3 +560,42 @@ def test_int8_wrappers_reject_what_they_do_not_take(cuda):
         Q.quantize_int8(torch.zeros(4, 4, device=cuda).t(), 0.5)
     with pytest.raises(ValueError, match="multiple of 16"):
         Q.quantize_int8(torch.zeros(4, 3, device=cuda), 0.5, channels=8)
+
+
+# ------------------------------------------------------- the caesar operators
+
+OP_CASES = [label for label, _, _ in op_cases("cpu")]
+# each operator's launch counter, on its public wrapper
+COUNTERS = {"nms": N.nms_padded, "roi_align": R.roi_align, "roi_align_backward": R.roi_align_backward,
+            "crop_and_resize": R.crop_and_resize, "quantize_int8": Q.quantize_int8, "conv2d_int8": Q.conv2d_int8}
+
+
+@pytest.mark.parametrize("case", OP_CASES)
+def test_opcheck_on_the_card(cuda, case):
+    """Schema, fake implementation, autograd registration and tracing under
+    dynamic shapes, with the kernels as the operators' implementations."""
+    (_, op, args), = [c for c in op_cases(cuda) if c[0] == case]
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.parametrize("case", OP_CASES)
+def test_operator_counts_card_launches_only(cuda, case):
+    """A call of the operator itself (``torch.ops.caesar.*``) on CUDA
+    tensors launches its kernel and counts one launch; the same call on CPU
+    tensors runs the plain version, counts none, and gives the card's
+    result (integers bit for bit; f32 within 1e-5 relative)."""
+    (_, op, args), = [c for c in op_cases(cuda) if c[0] == case]
+    (_, _, cpu_args), = [c for c in op_cases("cpu") if c[0] == case]
+    counter = COUNTERS[op.name().split("::")[1].split(".")[0]]
+    before = counter.launches
+    got = op(*args)
+    assert counter.launches == before + 1
+    ref = op(*cpu_args)
+    assert counter.launches == before + 1
+    torch.cuda.synchronize()
+    for g, r in zip(got if isinstance(got, tuple) else (got,), ref if isinstance(ref, tuple) else (ref,)):
+        assert g.device.type == "cuda" and r.device.type == "cpu" and g.dtype == r.dtype and g.shape == r.shape
+        if g.is_floating_point():  # f32 sums of two devices (the backward's atomics in any order)
+            assert torch.allclose(g.detach().cpu(), r.detach(), rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(g.cpu(), r)

@@ -237,25 +237,39 @@ def test_chip_smoke_fails_without_the_repository(tmp_path):
 
 
 def test_wrappers_do_not_fall_back_off_the_cpu():
-    """Only a CPU tensor takes the plain version; any other device launches
-    the kernel or raises."""
+    """Only a CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises. Every wrapper reaches its ``caesar`` operator, which
+    has a CPU and a CUDA kernel and no other: no composite kernel that a
+    device could fall back to, no kernel for another device, so the
+    dispatcher refuses any other real device. On the meta device each gives
+    its fake implementation's shapes and dtypes and computes nothing."""
+    from caesar_mrcnn_tpu_torch.ops import library
+
+    names = ("nms", "roi_align", "roi_align_backward", "crop_and_resize", "quantize_int8", "conv2d_int8")
+    for name in names:
+        qualname = f"{library.NAMESPACE}::{name}"
+        have = {key for key in ("CPU", "CUDA", "Meta", "XPU", "MPS", "HIP", "PrivateUse1", "Lazy",
+                                "CompositeExplicitAutograd", "CompositeImplicitAutograd")
+                if torch._C._dispatch_has_kernel_for_dispatch_key(qualname, key)}
+        assert have == {"CPU", "CUDA", "Meta"}, (name, have)
+
     boxes = torch.zeros(2, 16, 4, device="meta")
-    with pytest.raises(RuntimeError, match="no kernel"):
-        nms_padded(boxes, torch.zeros(2, 16, device="meta"), 8, 0.5)
+    idx, valid = nms_padded(boxes, torch.zeros(2, 16, device="meta"), 8, 0.5)
+    assert (idx.device.type, idx.dtype, idx.shape, valid.dtype) == ("meta", torch.int32, (2, 8), torch.bool)
     levels = [torch.zeros(2, s, s, 8, device="meta") for s in (16, 8, 4, 2)]
-    with pytest.raises(RuntimeError, match="no kernel"):
-        roi_align(levels, boxes, (64, 64), 7)
-    with pytest.raises(RuntimeError, match="no kernel"):
-        roi_align_backward(torch.zeros(2, 16, 7, 7, 8, device="meta"), boxes, [(16, 16)] * 4, (64, 64))
+    assert roi_align(levels, boxes, (64, 64), 7).shape == (2, 16, 7, 7, 8)
+    grads = roi_align_backward(torch.zeros(2, 16, 7, 7, 8, device="meta"), boxes, [(16, 16)] * 4, (64, 64))
+    assert [g.shape for g in grads] == [(2, 16, 16, 8)] * 4 and grads[0].device.type == "meta"
     masks = torch.zeros(2, 16, 16, 3, device="meta")
-    with pytest.raises(RuntimeError, match="no kernel"):
-        crop_and_resize(masks, boxes, torch.zeros(2, 16, dtype=torch.long, device="meta"), (4, 4))
-    with pytest.raises(RuntimeError, match="no kernel"):
-        quantize_int8(torch.zeros(2, 8, 8, 16, device="meta"), 0.5)
+    crops = crop_and_resize(masks, boxes, torch.zeros(2, 16, dtype=torch.long, device="meta"), (4, 6))
+    assert crops.shape == (2, 16, 4, 6) and crops.device.type == "meta"
+    q = quantize_int8(torch.zeros(2, 8, 8, 3, device="meta"), 0.5, channels=16)
+    assert (q.device.type, q.dtype, q.shape) == ("meta", torch.int8, (2, 8, 8, 16))
     xq = torch.zeros(2, 8, 8, 16, dtype=torch.int8, device="meta")
     w = torch.zeros(4, 3, 3, 16, dtype=torch.int8, device="meta")
-    with pytest.raises(RuntimeError, match="no kernel"):
-        conv2d_int8(xq, w, torch.ones(4, device="meta"), torch.zeros(4, device="meta"), 1, ((1, 1), (1, 1)))
+    out = conv2d_int8(xq, w, torch.ones(4, device="meta"), torch.zeros(4, device="meta"), 2, ((1, 1), (1, 1)),
+                      s_next=0.5)
+    assert (out.device.type, out.dtype, out.shape) == ("meta", torch.int8, (2, 4, 4, 4))
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

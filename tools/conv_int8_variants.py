@@ -154,6 +154,7 @@ def main() -> None:
     from caesar_mrcnn_tpu_torch import kernel_bench as kb
     from caesar_mrcnn_tpu_torch.models.backbone_int8 import pad_input_channels
     from caesar_mrcnn_tpu_torch.ops import _kernels
+    from caesar_mrcnn_tpu_torch.ops import library as L
     from caesar_mrcnn_tpu_torch.ops import quant as Q
 
     dev = torch.device("cuda")
@@ -178,14 +179,13 @@ def main() -> None:
         shutil.copytree(ROOT / "caesar_mrcnn_tpu_torch" / "csrc", d / "csrc")
         (d / "csrc" / "conv_int8.cu").write_text(variant_source(name))
         _kernels.CSRC, _kernels.BUILD_DIR = d / "csrc", d / "lib"
-        _kernels.library.cache_clear()
-        libs[name] = _kernels.library()
+        libs[name] = _kernels.load(_kernels.build()[0])
     tiles = Q._tiles
     print(f"variants of conv_int8.cu [{kb.card()}]")
     for rnd in range(2):
         for name, lib in libs.items():
             _kernels.library = lambda lib=lib: lib
-            Q._WEIGHT_MAPS.clear()
+            L._WEIGHT_MAPS.clear()
             cap = VARIANTS[name][1]
             Q._tiles = tiles if not cap else (
                 lambda m, n, k, sms, cap=cap: (min(tiles(m, n, k, sms)[0], cap), tiles(m, n, k, sms)[1]))
