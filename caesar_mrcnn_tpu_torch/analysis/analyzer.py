@@ -26,7 +26,7 @@ outputs. It uses no networkx, OpenCV or matplotlib: the cliques come from
 ``utils/graph.py::find_cliques`` (networkx's algorithm, in its order), the
 contours, ``minAreaRect`` and moments from ``analysis/contours.py``.
 Drawing (``draw`` with ``outfile_img``) needs matplotlib and waits for
-ROADMAP item A16: :meth:`Analyzer.predict` raises ``NotImplementedError``
+ROADMAP item A16c: :meth:`Analyzer.predict` raises ``NotImplementedError``
 where the JAX package would draw.
 """
 
@@ -350,7 +350,7 @@ class Analyzer:
         if self.draw and self.outfile_img:
             raise NotImplementedError(
                 "Analyzer.draw: the detection overlay needs matplotlib, which the port does not "
-                "use; drawing waits for ROADMAP item A16"
+                "use; drawing waits for ROADMAP item A16c"
             )
         t_start = time.time()
         self.image = image

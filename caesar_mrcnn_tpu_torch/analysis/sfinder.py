@@ -32,7 +32,7 @@ catalogs, on the port's ``Detector`` (``dispatch_tiles``/``collect``, or
   ROADMAP's "Not to port" list: :meth:`SFinder.run_tiled` raises
   ``ValueError`` for it;
 * ``outfile_img`` (the detection overlay) needs matplotlib and waits for
-  ROADMAP item A16: :meth:`SFinder.run` raises ``NotImplementedError``;
+  ROADMAP item A16c: :meth:`SFinder.run` raises ``NotImplementedError``;
 * the centroids' moments come from ``analysis/contours.py::moments``,
   which gives what ``cv2.moments`` gives.
 """
@@ -118,7 +118,7 @@ class SFinder:
         if self.outfile_img:
             raise NotImplementedError(
                 "SFinder.outfile_img: the detection overlay needs matplotlib, which the port does not "
-                "use; drawing waits for ROADMAP item A16"
+                "use; drawing waits for ROADMAP item A16c"
             )
         t0 = time.time()
         self.set_img_size_params(image_path)

@@ -14,7 +14,9 @@ CPU.
 Where it differs from the JAX CLI:
 
 * what the port does not have yet is refused before any work is done,
-  naming its ROADMAP item: ``--ngpu`` above 1 (A13), and
+  naming its ROADMAP item: ``--ngpu`` above 1 (A13), ``detect
+  --detect_outfile`` without ``--split_img_in_tiles`` (the overlay, A16c;
+  on the tiled path both CLIs ignore the flag), and
   ``--roi_gather_dtype`` other than ``none`` (not to be ported);
 * ``export --serving`` and ``export --quant_mode int8`` are refused: the
   int8 graph needs calibration images, which ``export`` has none of (the
@@ -28,7 +30,7 @@ Where it differs from the JAX CLI:
   ``--scoreThrPerClass`` exits with the flag's error (the JAX CLI ignores
   the first and raises a bare ``ValueError`` for the second);
 * ``train`` writes ``train_metrics.jsonl`` but no ``loss_curve.png``
-  (matplotlib; ROADMAP A16), and no XLA compile cache is set up.
+  (matplotlib; ROADMAP A16c), and no XLA compile cache is set up.
 """
 
 from __future__ import annotations
@@ -237,6 +239,12 @@ def refuse_unported(args) -> None:
             "export of the int8 graph (--serving, --quant_mode int8): it needs calibration images, which the "
             "export command has none of; call inference.export.export_detector on a Detector after "
             "Detector.quantize(images)"
+        )
+    if args.command == "detect" and args.detect_outfile and not args.split_img_in_tiles:
+        raise NotImplementedError(
+            f"--detect_outfile {args.detect_outfile}: the detection overlay needs matplotlib, which the port does "
+            "not use; drawing waits for ROADMAP item A16c (with --split_img_in_tiles the flag is ignored, as the "
+            "JAX CLI ignores it)"
         )
     if args.ngpu > 1:
         raise NotImplementedError(f"--ngpu {args.ngpu}: the port runs on one device; data parallelism is ROADMAP A13")

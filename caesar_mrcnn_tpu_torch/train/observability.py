@@ -1,7 +1,7 @@
 """Training metrics stream (port of ``MetricsLogger`` in
 ``caesar_mrcnn_tpu/train/observability.py``): the same file
 (``<name>_metrics.jsonl``), rows and keys. The loss-curve PNG needs
-matplotlib, which the port does not use (ROADMAP A16); the FLOP and
+matplotlib, which the port does not use (ROADMAP A16c); the FLOP and
 roofline counts, ``PhaseTimer`` and ``device_trace`` wait for A7.
 """
 
@@ -31,5 +31,5 @@ class MetricsLogger:
     def plot_losses(self, outfile: str, keys: Optional[List[str]] = None) -> None:
         raise NotImplementedError(
             "MetricsLogger.plot_losses: the loss curve needs matplotlib, which the port does not use; "
-            "drawing waits for ROADMAP item A16"
+            "drawing waits for ROADMAP item A16c"
         )

@@ -90,11 +90,26 @@ Phases, one line each:
    seeded 2048^2 mosaic (catalog JSON and DS9 file read back), then
    ``detect --serving`` and ``test --serving`` (the int8 graph): each
    mode's wall time and launches; the train step's time and first and last
-   losses.
+   losses;
+14. classify: the classifier CLI, ``caesar_mrcnn_tpu_torch.cli.sclassifier.main``,
+   in-process on the card, on a seeded 1024^2 synthetic sky
+   (``data/synthetic.py``: 4 x 4 samples of 256^2) and its Caesar ascii
+   catalog, with 256^2 cutouts at the serving flagship's width (ResNet-101,
+   FPN 256, bf16, 4+1 classes) and inference batch 1, settled random
+   weights saved as a ``.pt``: sources (every object of the sky, those at
+   the left and top edges on clamped cutouts), cutouts run and sources
+   classified, launches (2 NMS and 2 ROIAlign per cutout, exactly), wall
+   seconds and ms per cutout, and the catalog read back; NMS and ROIAlign
+   against their plain versions on the inputs of one of the path's detect
+   calls (batch 1: the RPN's 6000 boxes, the per-class NMS's 1000, the
+   cutout's own bf16 pyramid with its 1000 proposals at pool 7 and 100
+   detections at pool 14); then the same CLI at f32 with pinned heads on
+   six sources at 128^2 cutouts, on the card and with ``--device cpu``:
+   the two catalogs equal row for row (scores within 1e-5).
 
 Then the card's name and power limit, one JSON line with the kernels'
 record (launches on the main paths: detect, catalog, train, serving,
-export and cli; error,
+export, cli and classify; error,
 kernel, plain and bound times summed over the cases; ``library_ms`` null,
 with the reason beside it, but for the int8 convolution: ``torch._int_mm``
 at the sites where one matrix product computes its int32 sums), and as the
@@ -768,25 +783,40 @@ class TimedDetector:
         return self._timed("wait", self.det.detect, images)
 
 
-def time_host_spans(sf) -> dict:
-    """Wall seconds of SFinder's own host work, by step: per-tile analysis
-    (``_tile_sources``: Analyzer masks, contours, catalog entries), the
-    cross-tile merge, the source parameters (FITS re-read, moments, WCS)
-    and writing the catalog and DS9 files. Wraps the instance's methods."""
-    spans = {}
-    for name in ("_tile_sources", "_merge_edge_sources", "_add_source_params", "save"):
-        fn = getattr(sf, name)
-        spans[name] = 0.0
+class MethodTimer:
+    """Functions wrapped where the code looks them up (an attribute of a
+    class, an instance or a module) for one run: each call's wall ms, by
+    name."""
 
-        def timed(*args, _fn=fn, _name=name, **kwargs):
-            t = time.perf_counter()
-            try:
-                return _fn(*args, **kwargs)
-            finally:
-                spans[_name] += time.perf_counter() - t
+    def __init__(self, targets: dict):
+        self.targets = targets  # name -> (owner, attribute)
+        self.ms = {name: [] for name in targets}
+        self.saved = {}
 
-        setattr(sf, name, timed)
-    return spans
+    def __enter__(self):
+        for name, (owner, attr) in self.targets.items():
+            fn = self.saved[name] = getattr(owner, attr)
+
+            def timed(*args, _fn=fn, _ms=self.ms[name], **kwargs):
+                t = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    _ms.append(1e3 * (time.perf_counter() - t))
+
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self.saved[name])
+
+
+# SFinder's own host work, by step: per-tile analysis (``_tile_sources``:
+# Analyzer masks, contours, catalog entries), the cross-tile merge, the
+# source parameters (FITS re-read, moments, WCS) and writing the catalog
+# and DS9 files
+SFINDER_SPANS = ("_tile_sources", "_merge_edge_sources", "_add_source_params", "save")
 
 
 def run_catalog(det, cfg, path: str, out: str):
@@ -797,10 +827,11 @@ def run_catalog(det, cfg, path: str, out: str):
 
     sf = SFinder(det, cfg)
     sf.outfile_json, sf.outfile_ds9 = f"{out}.json", f"{out}.reg"
-    spans = time_host_spans(sf)
-    t = time.perf_counter()
-    sources = sf.run_tiled(path)
-    wall = time.perf_counter() - t
+    with MethodTimer({name: (sf, name) for name in SFINDER_SPANS}) as timer:
+        t = time.perf_counter()
+        sources = sf.run_tiled(path)
+        wall = time.perf_counter() - t
+    spans = {name: sum(ms) / 1e3 for name, ms in timer.ms.items()}
     with open(sf.outfile_json) as f:
         catalog = json.load(f)
     with open(sf.outfile_ds9) as f:
@@ -1641,6 +1672,264 @@ def check_cli(card_name: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- classify
+
+SKY_TILES = 4  # samples per side of the classify phase's sky
+SKY_SAMPLE = 256  # side of each SkySimulator sample
+
+
+def write_sky(path: str, seed: int = SEED) -> list:
+    """A seeded 1024^2 synthetic sky for the classify phase, written to
+    ``path`` as FITS: 4 x 4 ``SkySimulator`` samples of 256^2 side by side
+    (each brings its own beam, noise and ~5 objects, where one 1024^2
+    sample brings as many in all). Returns its objects in the sky's frame:
+    (class, x0, y0, xmin, xmax, ymin, ymax), the centroid the mask's mean
+    pixel and the box its extent (max + 1)."""
+    from caesar_mrcnn_tpu_torch.data.synthetic import SkySimulator
+    from caesar_mrcnn_tpu_torch.utils.fits import write_fits
+
+    sim = SkySimulator(size=SKY_SAMPLE, seed=seed)
+    n = SKY_TILES * SKY_SAMPLE
+    img = np.zeros((n, n), np.float32)
+    objs = []
+    for i in range(SKY_TILES):
+        for j in range(SKY_TILES):
+            y, x = i * SKY_SAMPLE, j * SKY_SAMPLE
+            sample, sample_objs = sim.sample()
+            img[y:y + SKY_SAMPLE, x:x + SKY_SAMPLE] = sample
+            for o in sample_objs:
+                ys, xs = np.nonzero(o["mask"])
+                objs.append((o["class"], x + float(xs.mean()), y + float(ys.mean()), x + int(xs.min()),
+                             x + int(xs.max()) + 1, y + int(ys.min()), y + int(ys.max()) + 1))
+    write_fits(img, path, header={"BMAJ": 1.5e-3, "BMIN": 1.2e-3, "CDELT1": -2.8e-4, "CDELT2": 2.8e-4})
+    return objs
+
+
+def write_scatalog(path: str, objs: list) -> list:
+    """The objects as a Caesar ascii catalog in ``SClassifier.read_scatalog``'s
+    17 columns (name at 0, centroid at 5/6, box at 13-16), every one of them:
+    the port clamps a cutout at the left or top edge to the image (ROADMAP
+    C9). Returns the names written."""
+    names = []
+    with open(path, "w") as f:
+        f.write("# name ... x0 y0 ... xmin xmax ymin ymax\n")
+        for k, (_, x0, y0, xmin, xmax, ymin, ymax) in enumerate(objs):
+            names.append(f"SKY{k:03d}")
+            f.write(" ".join([names[-1]] + ["0"] * 4 + [f"{x0:.2f}", f"{y0:.2f}"] + ["0"] * 6
+                             + [str(xmin), str(xmax), str(ymin), str(ymax)]) + "\n")
+    return names
+
+
+def classifier_weights(path: str, cutout: int, pinned: bool) -> None:
+    """Seeded random weights of the classifier CLI's model (its default
+    4+1 classes), settled as ``settle_random_weights`` settles the
+    flagship's (stem / 255, background bias -3), optionally with pinned
+    heads (``testing.pin_heads``), saved as a ``.pt`` checkpoint."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch import weights as W
+    from caesar_mrcnn_tpu_torch.cli.sclassifier import DEFAULT_CLASSDICT
+    from caesar_mrcnn_tpu_torch.config import detector_config
+    from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from caesar_mrcnn_tpu_torch.testing import pin_heads
+
+    model = MaskRCNN(detector_config(num_classes=len(json.loads(DEFAULT_CLASSDICT)) + 1,
+                                     image_min_dim=cutout, image_max_dim=cutout))
+    W.init_weights(model, torch.Generator().manual_seed(SEED))
+    settle_random_weights(model)
+    if pinned:
+        pin_heads(model)
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+
+
+def read_sclass_catalog(path: str) -> list:
+    """The classification catalog's rows: (name, x0, y0, class_id,
+    class_name, score)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    if lines[0] != "# name x0 y0 class_id class_name score":
+        raise AssertionError(f"catalog header {lines[0]!r}")
+    rows = []
+    for line in lines[1:]:
+        name, x0, y0, cid, cname, score = line.split()
+        rows.append((name, float(x0), float(y0), int(cid), cname, float(score)))
+    return rows
+
+
+def run_sclassifier(argv) -> tuple:
+    """``cli.sclassifier.main(argv)``, which must return 0: (wall seconds,
+    launches, the wall ms of each model build, cutout, detect call (H2D,
+    the detect step, the fetch and the host unmold) and Analyzer pass)."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch.analysis.analyzer import Analyzer
+    from caesar_mrcnn_tpu_torch.analysis.classifier import SClassifier
+    from caesar_mrcnn_tpu_torch.cli import sclassifier
+    from caesar_mrcnn_tpu_torch.inference import detector
+    from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
+    from caesar_mrcnn_tpu_torch.ops.roi_align import roi_align
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    nms_padded.launches = roi_align.launches = 0
+    targets = {"build": (detector, "build_detector"), "cutout": (SClassifier, "_make_cutout"),
+               "detect": (detector.Detector, "detect"), "analyzer": (Analyzer, "extract_det_masks")}
+    with MethodTimer(targets) as spans:
+        t = time.perf_counter()
+        rc = sclassifier.main(argv)
+        wall = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"sclassifier returned {rc}")
+    return wall, {"nms": nms_padded.launches, "roi_align": roi_align.launches}, spans.ms
+
+
+def check_classify_kernels(det, sky: str, cat: str, recs: dict, card_name: str) -> None:
+    """NMS and the ROIAlign forward against their plain versions on the
+    inputs of one ``Detector.detect`` call of the classify path (the
+    detector the CLI built, on the cutout of the catalog's first source, as
+    ``SClassifier.run`` makes it): the RPN's 6000 boxes before NMS, the
+    class-offset boxes of the per-class NMS, and the real bf16 P2..P5 of
+    the cutout with its proposals (pool 7) and detections (pool 14); the
+    same tolerances as the seeded cases (exact; 1 bf16 ulp)."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch.analysis.classifier import SClassifier
+    from caesar_mrcnn_tpu_torch.models import detection as D
+    from caesar_mrcnn_tpu_torch.models import mask_rcnn as M
+    from caesar_mrcnn_tpu_torch.models import proposals as P
+    from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
+    from caesar_mrcnn_tpu_torch.ops.roi_align import roi_align, roi_levels
+
+    sc = SClassifier(det, det.config)
+    sc.scutout_size = det.config.image_min_dim
+    if sc.read_img(sky) or sc.read_scatalog(cat):
+        raise AssertionError("the classify sky or catalog did not read back")
+    cutout = sc._make_cutout(sc.sources[0])
+    captured = {"nms": [], "roi_align": []}
+
+    def capture_nms(boxes, scores, max_out, thr):
+        captured["nms"].append((boxes.clone(), scores.clone(), max_out, thr))
+        return nms_padded(boxes, scores, max_out, thr)
+
+    def capture_roi(levels, boxes, image_shape, pool):
+        captured["roi_align"].append(([f.clone() for f in levels], boxes.clone(), tuple(image_shape), pool))
+        return roi_align(levels, boxes, image_shape, pool)
+
+    P.nms_padded, D.nms_padded, M.roi_align = capture_nms, capture_nms, capture_roi
+    try:
+        det.detect([cutout])
+    finally:
+        P.nms_padded, D.nms_padded, M.roi_align = nms_padded, nms_padded, roi_align
+    if len(captured["nms"]) != 2 or len(captured["roi_align"]) != 2:
+        raise AssertionError(f"one classify detect made {len(captured['nms'])} NMS and "
+                             f"{len(captured['roi_align'])} ROIAlign calls, expected 2 and 2")
+    print(f"kernels: classify inputs: one Detector.detect of the classify path on {sc.sources[0].name}'s "
+          f"cutout {cutout.shape[:2]} [{card_name}]")
+    for (boxes, scores, max_out, thr), label in zip(captured["nms"], ("classify RPN", "classify per-class")):
+        nms_against_plain(recs["nms"], boxes, scores, max_out, thr, label, card_name)
+    for levels, boxes, (image, width), pool in captured["roi_align"]:
+        if image != width or any(f.dtype != torch.bfloat16 for f in levels):
+            raise AssertionError(f"classify ROIAlign at {image}x{width}, levels {[f.dtype for f in levels]}")
+        per_level = torch.bincount(roi_levels(boxes, float(image * width)).flatten().long(), minlength=4).tolist()
+        print(f"kernels: classify boxes at pool {pool}: {tuple(boxes.shape[:2])}, per level P2..P5 {per_level}")
+        roi_align_against_plain(recs["roi_align"], levels, boxes, image, pool, "classify", card_name)
+
+
+def check_classify(recs: dict, card_name: str) -> dict:
+    """Source classification through the port's classifier CLI on the card
+    (module docstring, phase 14): a seeded synthetic sky and its catalog,
+    256^2 cutouts at the serving flagship's width and batch 1; the kernels
+    on one of its detect calls' inputs; then the card-against-CPU parity at
+    f32 with pinned heads."""
+    from caesar_mrcnn_tpu_torch.cli import sclassifier
+    from caesar_mrcnn_tpu_torch.inference import detector
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            sky = os.path.join(tmp, "sky.fits")
+            objs = write_sky(sky)
+            cat = os.path.join(tmp, "sky_catalog.dat")
+            names = write_scatalog(cat, objs)
+            weights = os.path.join(tmp, "classifier.pt")
+            classifier_weights(weights, 256, pinned=False)
+            out = os.path.join(tmp, "sclass.dat")
+            argv = ["--image", sky, "--scatalog", cat, "--scutout_size", "256", "--device", "cuda",
+                    "--weights", weights, "--scoreThr", "0.3", "--iouThr", "0.3", "--outfile", out]
+            built, build = [], detector.build_detector
+            detector.build_detector = lambda *a, **kw: built.append(build(*a, **kw)) or built[-1]
+            try:
+                wall, launches, spans = run_sclassifier(argv)
+            finally:
+                detector.build_detector = build
+            cutouts = len(spans["cutout"])
+            if launches != {"nms": 2 * cutouts, "roi_align": 2 * cutouts} or len(spans["detect"]) != cutouts:
+                raise AssertionError(f"classify launches {launches} over {cutouts} cutouts ({len(spans['detect'])} "
+                                     f"detect calls), expected 2 NMS and 2 ROIAlign per cutout")
+            rows = read_sclass_catalog(out)
+            classes = set(json.loads(sclassifier.DEFAULT_CLASSDICT))
+            classified = [r for r in rows if r[3] != -1]
+            if [r[0] for r in rows] != names or not 0 < cutouts <= len(names):
+                raise AssertionError(f"{len(rows)} catalog rows for {len(names)} sources, {cutouts} cutouts")
+            edge = sum(x0 < 128 or y0 < 128 for _, x0, y0, *_ in objs)
+            bad = [r for r in classified if r[4] not in classes or not (0.3 <= r[5] <= 1.0)]
+            if bad:
+                raise AssertionError(f"classified rows with an unknown class or a score outside [0.3, 1]: {bad[:5]}")
+            print(f"classify: cli.sclassifier.main on a seeded {SKY_TILES * SKY_SAMPLE}^2 synthetic sky ({SKY_TILES} x "
+                  f"{SKY_TILES} SkySimulator samples, "
+                  f"{len(objs)} objects, all in the catalog; {edge} within 128 px of the left or top edge, their "
+                  f"cutouts clamped to the image, ROADMAP C9), 256^2 cutouts, ResNet-101 FPN 256 bf16 batch 1, 4+1 "
+                  f"classes, settled random weights, --scoreThr 0.3 --iouThr 0.3: {cutouts} cutouts run, "
+                  f"{len(classified)} of {len(rows)} sources classified; launches {launches} (2 NMS and 2 ROIAlign "
+                  f"per cutout) [{card_name}]")
+            total = {k: sum(v) / 1e3 for k, v in spans.items()}
+            print(f"classify: {wall:.2f} s wall, {1e3 * wall / cutouts:.1f} ms per cutout over the wall: model build "
+                  f"and weights {total['build']:.2f} s; cutouts (crop, zscale) {total['cutout']:.2f} s; "
+                  f"Detector.detect {total['detect']:.2f} s, {statistics.median(spans['detect']):.2f} ms per cutout "
+                  f"(median; the first {spans['detect'][0]:.1f}); Analyzer.extract_det_masks {total['analyzer']:.2f} s, "
+                  f"{statistics.median(spans['analyzer']):.2f} ms per cutout (median); the rest (FITS and catalog "
+                  f"read, matching, writing) {wall - sum(total.values()):.2f} s [{card_name}]")
+            for r in rows:
+                print(f"classify: row {r[0]} {r[1]} {r[2]} {r[3]} {r[4]} {r[5]}")
+            check_classify_kernels(built[0], sky, cat, recs, card_name)
+            del built[:]
+
+            # parity: f32, pinned heads, 128^2 cutouts, a handful of sources
+            few = os.path.join(tmp, "few.dat")
+            with open(cat) as f:
+                lines = f.read().splitlines()
+            with open(few, "w") as f:
+                f.write("\n".join(lines[:7]) + "\n")  # the header and six sources
+            pinned = os.path.join(tmp, "pinned.pt")
+            classifier_weights(pinned, 128, pinned=True)
+            make = sclassifier.detector_config
+            sclassifier.detector_config = lambda **kw: make(**kw, compute_dtype="float32")
+            try:
+                got = {}
+                for device in ("cuda", "cpu"):
+                    path = os.path.join(tmp, f"few_{device}.dat")
+                    argv = ["--image", sky, "--scatalog", few, "--scutout_size", "128", "--device", device,
+                            "--weights", pinned, "--iouThr", "0.05", "--outfile", path]
+                    seconds, _, few_spans = run_sclassifier(argv)
+                    got[device] = (read_sclass_catalog(path), seconds, len(few_spans["cutout"]))
+            finally:
+                sclassifier.detector_config = make
+        finally:
+            os.chdir(cwd)
+    (card, card_s, n), (cpu, cpu_s, _) = got["cuda"], got["cpu"]
+    same = len(card) == len(cpu) and all(a[:5] == b[:5] and abs(a[5] - b[5]) <= 1e-5 for a, b in zip(card, cpu))
+    n_classified = sum(r[3] != -1 for r in card)
+    print(f"classify parity: the same CLI at f32 with pinned heads, 128^2 cutouts, {len(card)} sources, {n} cutouts, "
+          f"--iouThr 0.05, card ({card_s:.2f} s) and --device cpu ({cpu_s:.2f} s): "
+          + (f"{n_classified} classified" if n_classified else "pinned heads classified no source")
+          + f"; rows {'equal' if same else 'DIFFERENT'} (names, positions, classes exactly, scores within 1e-5): "
+          + "; ".join(f"{r[0]} {r[4]} {r[5]}" for r in card) + f" [{card_name}]")
+    if not same:
+        raise AssertionError(f"card and CPU classification catalogs differ:\n{card}\n{cpu}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1698,9 +1987,12 @@ def main() -> None:
     t = time.perf_counter()
     cli = check_cli(card_name)
     print(f"cli: phase {time.perf_counter() - t:.2f} s [{card_name}]")
+    t = time.perf_counter()
+    classify = check_classify({"nms": nms, "roi_align": roi}, card_name)
+    print(f"classify: phase {time.perf_counter() - t:.2f} s [{card_name}]")
     print(f"launches: detect path {detect}, catalog path {catalog}, train path {train}, serving path {serving}, "
-          f"export path {export}, cli {cli}")
-    paths = (detect, catalog, train, serving, export, cli)
+          f"export path {export}, cli {cli}, classify {classify}")
+    paths = (detect, catalog, train, serving, export, cli, classify)
 
     def record(name, source, replaces, rec, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"caesar_mrcnn_tpu_torch/csrc/{source}",

@@ -134,6 +134,9 @@ DETECT_CASES = {
     "serial window": ["--xmin", "10", "--xmax", "300", "--ymin", "5", "--ymax", "250"],
     "square tiles": ["--split_img_in_tiles", "--tile_xsize", "128", "--tile_ysize", "128"],
     "rectangular tiles": ["--split_img_in_tiles", "--tile_xsize", "192", "--tile_ysize", "128"],
+    # the tiled path draws nothing: both CLIs ignore the overlay's path there
+    "square tiles, overlay path ignored": ["--split_img_in_tiles", "--tile_xsize", "128", "--tile_ysize", "128",
+                                           "--detect_outfile", "overlay.png"],
 }
 
 
@@ -144,6 +147,7 @@ def test_detect_equals_jax_cli(case, weights, mosaic, f32, tmp_path, monkeypatch
     out = {name: (json.loads((d / "catalog.json").read_text()), (d / "ds9_mosaic.reg").read_bytes())
            for name, d in dirs.items()}
     _assert_same_catalogs(out, score_atol=1e-5)
+    assert not any((d / "overlay.png").exists() for d in dirs.values())
 
 
 @pytest.fixture()
@@ -279,6 +283,11 @@ REFUSALS = {
                        (NotImplementedError, "Not to port"),
                        lambda: _jax_config(["detect", "--roi_gather_dtype", "float8_e4m3fn"]).roi_gather_dtype
                        == "float8_e4m3fn"),
+    "detect overlay untiled": (["detect", "--image", "x.fits", "--detect_outfile", "overlay.png"],
+                               (NotImplementedError, "A16c"),
+                               lambda: jcli.validate_args(jcli.parse_args(["detect", "--image", "x.fits",
+                                                                           "--detect_outfile", "o.png"])) == 0
+                               and not _jax_config(["detect", "--detect_outfile", "o.png"]).split_img_in_tiles),
     "train serving": (["train", "--datalist", "list.dat", "--serving"], None,
                       lambda: jcli.validate_args(jcli.parse_args(["train", "--datalist", "l", "--serving"])) == 0
                       and _jax_config(["train", "--serving"]).quant_mode == "int8"),

@@ -3,11 +3,15 @@ originals, on the CPU, on seeded inputs: the configuration and its presets,
 the anchors, FITS writing and reading, zscale, tiling, the augmentations,
 the debug ROIs, the dataset, the native host library, the host layer's
 pieces (the graph and statistics helpers, the evaluation metrics, the DS9
-regions and the ground-truth matching), and the legacy trainer CLI's
-translation onto the main CLI.
+regions and the ground-truth matching), the legacy trainer CLI's
+translation onto the main CLI, and the synthetic sky.
 
 Every comparison is exact: the copies run the same numpy code, and the two
-native libraries are built from the same C++ with the same flags. The JAX
+native libraries are built from the same C++ with the same flags. The one
+exception is the synthetic sky's image: its noise is blurred by numpy in
+the port and by OpenCV in the JAX package, and the two agree within 4
+float32 ulps of the image's largest value (the objects' masks, classes
+and SNRs exactly). The JAX
 package's library is built into a temporary directory by its own loader,
 so that these tests never race the JAX package's tests for its in-tree
 ``libfastops.so``.
@@ -31,6 +35,7 @@ from caesar_mrcnn_tpu.analysis import regions as jregions
 from caesar_mrcnn_tpu.cli import train_all as jtrain_all
 from caesar_mrcnn_tpu.data import augment as jaugment
 from caesar_mrcnn_tpu.data import dataset as jdataset
+from caesar_mrcnn_tpu.data import synthetic as jsynthetic
 from caesar_mrcnn_tpu.evalmetrics import ap as jap
 from caesar_mrcnn_tpu.evalmetrics import coco as jcoco
 from caesar_mrcnn_tpu.evalmetrics import voc as jvoc
@@ -50,6 +55,7 @@ from caesar_mrcnn_tpu_torch.analysis import regions as tregions
 from caesar_mrcnn_tpu_torch.cli import train_all as ttrain_all
 from caesar_mrcnn_tpu_torch.data import augment as taugment
 from caesar_mrcnn_tpu_torch.data import dataset as tdataset
+from caesar_mrcnn_tpu_torch.data import synthetic as tsynthetic
 from caesar_mrcnn_tpu_torch.evalmetrics import ap as tap
 from caesar_mrcnn_tpu_torch.evalmetrics import coco as tcoco
 from caesar_mrcnn_tpu_torch.evalmetrics import voc as tvoc
@@ -429,3 +435,71 @@ def test_train_all_translate_refuses_as_jax(argv):
             mod.translate(mod.parse_args(argv))
         errors.append(str(err.value))
     assert errors[0] == errors[1]
+
+
+def _assert_sky_close(got, ref):
+    assert got.dtype == ref.dtype == np.float32 and got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=4 * np.spacing(np.abs(ref).max()))
+
+
+SKIES = {
+    "64 seed 11": (64, 11, {}),
+    "128 seed 3": (128, 3, {}),
+    "256 sidelobe-heavy": (256, 100, dict(sidelobe_spoke_p=1.0, sidelobe_src_snr=15.0, sidelobe_arc_p=0.6)),
+}
+
+
+@pytest.mark.parametrize("case", list(SKIES))
+def test_sky_simulator_equals_jax(case):
+    """The same seed draws the same skies: the image within 4 ulps of its
+    largest value, every object's mask, class and SNR exactly."""
+    size, seed, kw = SKIES[case]
+    sims = tsynthetic.SkySimulator(size, seed, **kw), jsynthetic.SkySimulator(size, seed, **kw)
+    n_objs = 0
+    for _ in range(4):
+        (img, objs), (ref_img, ref_objs) = (sim.sample() for sim in sims)
+        _assert_sky_close(img, ref_img)
+        assert [(o["class"], o["snr"]) for o in objs] == [(o["class"], o["snr"]) for o in ref_objs]
+        for o, r in zip(objs, ref_objs):
+            np.testing.assert_array_equal(o["mask"], r["mask"])
+        n_objs += len(objs)
+    assert n_objs > 0
+
+
+def test_gaussian_blur_equals_cv2():
+    """The port's blur against ``cv2.GaussianBlur`` on seeded white noise at
+    the simulator's kernel sizes (and an image smaller than the kernel's
+    reach on one side)."""
+    import cv2
+
+    rng = np.random.RandomState(12)
+    for shape in ((256, 256), (40, 90)):
+        for _ in range(4):
+            white = rng.normal(0.0, 1.0, shape).astype(np.float32)
+            sy, sx = rng.uniform(3.5, 6.0, 2) / 2.3548
+            k = int(2 * np.ceil(3 * max(sy, sx)) + 1)
+            _assert_sky_close(tsynthetic.gaussian_blur(white, k, sx, sy),
+                              cv2.GaussianBlur(white, (k, k), sigmaX=sx, sigmaY=sy))
+
+
+def test_write_survey_equals_jax(tmp_path):
+    """The same files: the list, the json descriptors and the mask FITS
+    byte for byte, the image FITS with the same header and values within 4
+    ulps."""
+    for mod, out in ((tsynthetic, "t"), (jsynthetic, "j")):
+        lst = mod.write_survey(str(tmp_path / out), 3, seed=5, size=128, prefix="sky")
+        assert lst == str(tmp_path / out / "datalist.dat")
+    names = sorted(f.name for f in (tmp_path / "j").iterdir())
+    assert names == sorted(f.name for f in (tmp_path / "t").iterdir()) and len(names) > 7
+    t_list = (tmp_path / "t" / "datalist.dat").read_text()
+    assert t_list == (tmp_path / "j" / "datalist.dat").read_text().replace(str(tmp_path / "j"), str(tmp_path / "t"))
+    for name in names:
+        got, ref = (tmp_path / "t" / name).read_bytes(), (tmp_path / "j" / name).read_bytes()
+        if name == "datalist.dat":  # absolute paths, compared above
+            continue
+        if name.endswith(".fits") and "_m" not in name:  # an image
+            assert got[:2880] == ref[:2880]
+            _assert_sky_close(tfits.read_fits_data(str(tmp_path / "t" / name))[0],
+                              jfits.read_fits_data(str(tmp_path / "j" / name))[0])
+        else:
+            assert got == ref, name

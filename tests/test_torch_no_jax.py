@@ -140,6 +140,47 @@ print("cli ok")
 """
 
 
+HOST = """
+import json, os, tempfile
+import numpy as np
+from caesar_mrcnn_tpu_torch.cli import eval_map, eval_voc, sclassifier
+from caesar_mrcnn_tpu_torch.config import detector_config
+from caesar_mrcnn_tpu_torch.data.synthetic import write_survey
+from caesar_mrcnn_tpu_torch.evalmetrics.voc import BBox, write_padilla_dirs
+from caesar_mrcnn_tpu_torch.utils import fits as F
+# the CLI's config narrowed to a small detector (it has no flags for these)
+sclassifier.detector_config = lambda **kw: detector_config(**kw, backbone="custom", pre_nms_limit=128,
+                                                           post_nms_rois_inference=32, detection_max_instances=8)
+with tempfile.TemporaryDirectory() as tmp:
+    os.chdir(tmp)
+    data = np.random.RandomState(1).normal(0, 0.01, (200, 200)).astype(np.float32)
+    data[90:110, 90:110] += 5.0
+    F.write_fits(data, "img.fits")
+    with open("cat.dat", "w") as f:
+        f.write("S1 0 0 0 0 100 100 0 0 0 0 0 0 90 110 90 110 0\\n")
+    assert sclassifier.main(["--image", "img.fits", "--scatalog", "cat.dat", "--scutout_size", "64",
+                             "--device", "cpu", "--scoreThr", "0.0"]) == 0
+    with open("sclass_catalog.dat") as f:
+        assert f.read().splitlines()[1].startswith("S1 100.0 100.0 ")
+    boxes = [BBox("a", "source", (10, 10, 20, 20)), BBox("a", "galaxy", (50, 50, 80, 80))]
+    write_padilla_dirs(boxes, [BBox(b.image_id, b.class_name, b.box, 0.9) for b in boxes], "gt", "det")
+    assert eval_voc.main(["-gt", "gt", "-det", "det"]) == 0
+    with open("results/results.txt") as f:
+        assert "mAP: 100.00%" in f.read()
+    with open("gt.json", "w") as f:
+        json.dump({"a": [[10, 10, 20, 20]]}, f)
+    with open("pred.json", "w") as f:
+        json.dump({"a": {"boxes": [[10, 10, 20, 20]], "scores": [0.9]}}, f)
+    assert eval_map.main(["--gt", "gt.json", "--pred", "pred.json"]) == 0
+    lst = write_survey(os.path.join(tmp, "sky"), 2, seed=3, size=64)
+    with open(lst) as f:
+        assert len(f.read().split()) == 2
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in _Blocked.names)
+assert not loaded, loaded
+print("host ok")
+"""
+
+
 def _run(args, cwd, env_extra=None):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(env_extra or {})
@@ -175,6 +216,16 @@ def test_cli_trains_and_detects_without_jax_cv2_matplotlib_h5py():
     proc = _run(["-c", BLOCK_IMPORTS + CLI], cwd=REPO, env_extra={"PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "cli ok" in proc.stdout
+
+
+def test_classifier_eval_and_synthetic_without_jax_cv2_matplotlib_h5py():
+    """The classifier CLI classifies a catalog source on the CPU, both eval
+    CLIs write their results, and ``write_survey`` writes a synthetic sky,
+    with jax, flax, optax, orbax, cv2, networkx, matplotlib, h5py and
+    ``caesar_mrcnn_tpu`` blocked."""
+    proc = _run(["-c", BLOCK_IMPORTS + HOST], cwd=REPO, env_extra={"PYTHONPATH": str(REPO)})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "host ok" in proc.stdout
 
 
 def test_chip_smoke_imports_only_the_port():
