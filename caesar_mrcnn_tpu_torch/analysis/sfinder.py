@@ -26,8 +26,14 @@ The port's copy of ``caesar_mrcnn_tpu/analysis/sfinder.py``, with the same
 catalogs, on the port's ``Detector`` (``dispatch_tiles``/``collect``, or
 ``detect``). Where it differs:
 
-* one process only: ``parallel/dist.py::get_comm`` raises for more (the
-  multi-process communicator is ROADMAP item A13);
+* the tiled path's processes are a ``torch.distributed`` group
+  (``parallel/dist.py::TorchDistComm``, from ``get_comm``): each rank runs
+  its round-robin share of the tiles on its own device and rank 0 merges
+  and writes the catalog; a launcher's ``WORLD_SIZE`` above 1 without an
+  initialized group raises. Rank 0 puts the gathered sources back in tile
+  order before the merge, so that the catalog (its source names and
+  order) is the one-process catalog whatever the number of processes; the
+  JAX package merges them in rank order;
 * ``tile_wire="raw"`` (``Detector.dispatch_tiles_raw``) is on the
   ROADMAP's "Not to port" list: :meth:`SFinder.run_tiled` raises
   ``ValueError`` for it;
@@ -303,13 +309,15 @@ class SFinder:
         while pending:
             consume(*pending.popleft())
 
-        # gather to master over DCN (replaces pickled MPI send/recv,
+        # gather to rank 0 (replaces pickled MPI send/recv,
         # reference: sfinder.py:940-988)
         gathered = self.comm.gather(my_sources)
         self.comm.barrier()
         if gathered is None:  # non-master rank
             return {}
-        all_sources = [s for worker in gathered for s in worker]
+        # back in tile order (rank r held tiles r, r + size, ...), so that
+        # the catalog is the one-process catalog whatever the rank count
+        all_sources = sorted((s for worker in gathered for s in worker), key=lambda s: s["tile"])
 
         merged = self._merge_edge_sources(all_sources)
         self.sources = {"image_id": self.image_id, "objs": []}

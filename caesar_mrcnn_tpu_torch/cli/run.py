@@ -11,13 +11,31 @@ caller asks for the CPU (``--device cpu``, where the kernels' plain
 versions run). ``cuda`` without a card raises; nothing falls back to the
 CPU.
 
+``--ngpu N`` (data parallelism, the JAX CLI's device mesh):
+
+* ``train`` runs ``N`` data-parallel processes (``train/trainer.py``),
+  global batch ``--nimg_per_gpu`` x ``N``, rank ``r`` on
+  ``cuda:(LOCAL_RANK % cards)`` (``--ngpu 2`` on one card runs two ranks
+  on it, over Gloo; a card per rank gets NCCL). Outside a launcher the
+  CLI starts the ``N`` processes itself (``torch.multiprocessing``, spawn,
+  a free localhost port); under ``torchrun`` its ``WORLD_SIZE`` must equal
+  ``N``. Only rank 0 writes the checkpoints, ``train_metrics.jsonl`` and
+  the log;
+* ``detect`` and ``test`` in one process run the ``Detector`` over ``N``
+  local devices (fewer, with a warning, when fewer exist); under a
+  launcher (``WORLD_SIZE`` = ``N`` > 1) ``detect --split_img_in_tiles`` is
+  the multi-process ``SFinder``, one card per rank.
+
 Where it differs from the JAX CLI:
 
 * what the port does not have yet is refused before any work is done,
-  naming its ROADMAP item: ``--ngpu`` above 1 (A13), ``detect
-  --detect_outfile`` without ``--split_img_in_tiles`` (the overlay, A16c;
-  on the tiled path both CLIs ignore the flag), and
-  ``--roi_gather_dtype`` other than ``none`` (not to be ported);
+  naming its ROADMAP item: ``detect --detect_outfile`` without
+  ``--split_img_in_tiles`` (the overlay, A16c; on the tiled path both CLIs
+  ignore the flag), and ``--roi_gather_dtype`` other than ``none`` (not to
+  be ported);
+* under a launcher of more than one process, a ``WORLD_SIZE`` other than
+  ``--ngpu`` is refused, and so are ``test``, ``export`` and an untiled
+  ``detect``, which one process runs over ``--ngpu`` devices;
 * ``export --serving`` and ``export --quant_mode int8`` are refused: the
   int8 graph needs calibration images, which ``export`` has none of (the
   JAX CLI exports the float graph then); export a calibrated ``Detector``
@@ -37,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import sys
 from typing import List, Optional
@@ -98,7 +117,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
     # TRAIN OPTIONS
     parser.add_argument("--ngpu", type=int, default=1,
-                        help="number of data-parallel devices (the port runs on one: ROADMAP A13)")
+                        help="number of data-parallel devices: train runs one process per device, detect and "
+                        "test one replica per device")
     parser.add_argument("--nimg_per_gpu", type=int, default=1)
     parser.add_argument("--nepochs", type=int, default=1)
     parser.add_argument("--epoch_length", type=int, default=None)
@@ -246,12 +266,26 @@ def refuse_unported(args) -> None:
             "not use; drawing waits for ROADMAP item A16c (with --split_img_in_tiles the flag is ignored, as the "
             "JAX CLI ignores it)"
         )
-    if args.ngpu > 1:
-        raise NotImplementedError(f"--ngpu {args.ngpu}: the port runs on one device; data parallelism is ROADMAP A13")
     if args.roi_gather_dtype != "none":
         raise NotImplementedError(
             f"--roi_gather_dtype {args.roi_gather_dtype}: the JAX package's reduced-precision ROIAlign "
             "gather is on the ROADMAP's 'Not to port' list; the port takes only 'none'"
+        )
+
+
+def check_launcher(args, world_size: int) -> None:
+    """Under a launcher of ``world_size`` > 1 processes: one process per
+    device, so ``--ngpu`` must count them, and only ``train`` and tiled
+    ``detect`` run there."""
+    if world_size != args.ngpu:
+        raise ValueError(
+            f"the launcher's WORLD_SIZE={world_size} differs from --ngpu {args.ngpu}: under a launcher the CLI "
+            f"runs one process per device; pass --ngpu {world_size}"
+        )
+    if not (args.command == "train" or (args.command == "detect" and args.split_img_in_tiles)):
+        raise ValueError(
+            f"{args.command}{'' if args.command != 'detect' else ' without --split_img_in_tiles'} runs in one "
+            f"process: run it without a launcher, with --ngpu {args.ngpu} to use {args.ngpu} local devices"
         )
 
 
@@ -385,14 +419,33 @@ def _make_dataset(args, cfg: Config):
     return ds
 
 
-def create_train_val_datasets(args, cfg: Config):
+def create_train_val_datasets(args, cfg: Config, comm=None):
+    """The train and validation datasets. A ``--datalist`` alone is split
+    at random into ``train.dat`` and ``crossval.dat`` in the working
+    directory; with a communicator of several ranks every rank makes rank
+    0's split (its seed), the others writing their list files to a
+    temporary directory of their own."""
+    import tempfile
+
     from ..data.dataset import create_train_val_sets_from_list
 
     train_list, val_list = args.datalist_train, args.datalist_val
-    if args.dataloader in ("datalist", "datalist_json") and args.datalist and not train_list:
-        with open(args.datalist) as f:
-            rows = [r for r in f.read().splitlines() if r.strip()]
-        train_list, val_list = create_train_val_sets_from_list(rows, crossval_size=args.validation_data_fract)
+    with tempfile.TemporaryDirectory() as own:
+        if args.dataloader in ("datalist", "datalist_json") and args.datalist and not train_list:
+            with open(args.datalist) as f:
+                rows = [r for r in f.read().splitlines() if r.strip()]
+            seed, files = None, {}
+            if comm is not None and comm.size > 1:
+                seed = comm.allgather(int(np.random.randint(2 ** 31)))[0]
+                if comm.rank:
+                    files = {"train_filename": os.path.join(own, "train.dat"),
+                             "crossval_filename": os.path.join(own, "crossval.dat")}
+            train_list, val_list = create_train_val_sets_from_list(
+                rows, crossval_size=args.validation_data_fract, seed=seed, **files)
+        return _load_train_val(args, cfg, train_list, val_list)
+
+
+def _load_train_val(args, cfg: Config, train_list, val_list):
     ds_train = _make_dataset(args, cfg)
     ds_val = _make_dataset(args, cfg)
     if args.dataloader == "datalist":
@@ -423,6 +476,37 @@ def create_test_dataset(args, cfg: Config):
     return ds
 
 
+# ------------------------------------------------------------- processes
+
+
+def _rank_main(local_rank: int, argv: List[str], world_size: int, port: int, threads: int) -> None:
+    """One spawned data-parallel rank: the launcher's variables, then
+    :func:`main` as under ``torchrun``."""
+    import torch
+
+    os.environ.update({"RANK": str(local_rank), "LOCAL_RANK": str(local_rank), "WORLD_SIZE": str(world_size),
+                       "LOCAL_WORLD_SIZE": str(world_size), "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)})
+    torch.set_num_threads(threads)
+    rc = main(argv)
+    if rc:
+        raise SystemExit(rc)
+
+
+def spawn_ranks(argv: List[str], n: int) -> int:
+    """Run ``argv`` as ``n`` data-parallel processes on this host (spawned,
+    on a free localhost port), as ``torchrun --nproc-per-node n`` would;
+    a rank that fails raises here."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from ..parallel.dist import free_port
+
+    threads = max(1, torch.get_num_threads() // n)
+    mp.start_processes(_rank_main, args=(list(argv), n, free_port(), threads), nprocs=n, join=True,
+                       start_method="spawn")
+    return 0
+
+
 # --------------------------------------------------------------- run modes
 
 
@@ -438,16 +522,24 @@ def run_train(args, cfg: Config) -> int:
     """Train ``--nepochs`` epochs of ``--epoch_length`` micro-steps; every
     epoch, validation losses and a ``mask_rcnn_<name>_NNNN.pt`` checkpoint."""
     import torch
+    import torch.distributed as dist
 
     from .. import weights as W
     from ..data.generator import TrainingPipeline
     from ..models.mask_rcnn import MaskRCNN
+    from ..parallel.dist import get_comm
+    from ..parallel.mesh import shard_rows
     from ..train import checkpoints as CKPT
     from ..train.observability import MetricsLogger
-    from ..train.trainer import make_eval_step, make_optimizer, make_train_step, train_loop
+    from ..train.trainer import (broadcast_parameters, make_eval_step, make_optimizer, make_train_step,
+                                 train_loop)
 
     device = torch.device(args.device)
-    ds_train, ds_val = create_train_val_datasets(args, cfg)
+    # data parallelism: this process is one rank of the group (the launcher's or spawn_ranks's)
+    comm = get_comm()
+    group = dist.group.WORLD if comm.size > 1 else None
+    rows = shard_rows(cfg.batch_size, comm.size, comm.rank) if group is not None else None
+    ds_train, ds_val = create_train_val_datasets(args, cfg, comm)
     n_train = ds_train.num_images
     steps_per_epoch = args.epoch_length or max(1, n_train // cfg.batch_size)
     # every epoch, nvalidation_steps forward-only loss batches of the val split
@@ -466,6 +558,8 @@ def run_train(args, cfg: Config) -> int:
         CKPT.restore_weights(model, args.weights, exclude=_exclude_patterns(args))
         start_epoch = CKPT.epoch_from_path(args.weights)
     model.to(device)
+    if group is not None:
+        broadcast_parameters(model, group)  # every rank starts from rank 0's weights
     optimizer = make_optimizer(cfg, model, layers=args.trainable_layers)
 
     cache_bytes = int(args.data_cache_gb * (1 << 30))
@@ -481,25 +575,28 @@ def run_train(args, cfg: Config) -> int:
                 class_weights[int(cid)] = w
         logger.info("class weights: %s", class_weights.tolist())
     anchors = pipeline.anchors_normalized()
-    step = make_train_step(model, optimizer, anchors, class_weights=class_weights)
+    step = make_train_step(model, optimizer, anchors, class_weights=class_weights, group=group)
 
     val_pipeline, val_step = None, None
     if val_steps:
         val_pipeline = TrainingPipeline(
             ds_val, cfg, augmentation=False, seed=1, num_workers=args.nthreads, cache_bytes=cache_bytes,
         )
-        val_step = make_eval_step(model, anchors, class_weights=class_weights)
+        val_step = make_eval_step(model, anchors, class_weights=class_weights, group=group)
 
-    batches = pipeline.prefetch(device=device)
-    val_batches = val_pipeline.prefetch(device=device) if val_pipeline is not None else None
+    batches = pipeline.prefetch(device=device, rows=rows)
+    val_batches = val_pipeline.prefetch(device=device, rows=rows) if val_pipeline is not None else None
+    # on every rank the same generator: the sampling priorities are drawn for the global batch
     generator = torch.Generator(device=device).manual_seed(42)
-    os.makedirs(args.logs, exist_ok=True)
-    metrics = MetricsLogger(args.logs)
+    master = comm.rank == 0
+    if master:
+        os.makedirs(args.logs, exist_ok=True)
+    metrics = MetricsLogger(args.logs) if master else None
     try:
         for epoch in range(start_epoch, start_epoch + args.nepochs):
             losses = train_loop(
                 step, batches, steps_per_epoch, device, generator=generator,
-                callback=lambda s, ls, e=epoch: metrics.log(e * steps_per_epoch + s, ls),
+                callback=(lambda s, ls, e=epoch: metrics.log(e * steps_per_epoch + s, ls)) if master else None,
             )
             if val_steps:
                 # the same target sampling every epoch
@@ -510,10 +607,13 @@ def run_train(args, cfg: Config) -> int:
                     for k, v in vl.items():
                         sums[k] = sums.get(k, 0.0) + float(v)
                 val_losses = {f"val_{k}": v / val_steps for k, v in sums.items()}
-                metrics.log((epoch + 1) * steps_per_epoch, val_losses)
+                if master:
+                    metrics.log((epoch + 1) * steps_per_epoch, val_losses)
                 logger.info("epoch %d validation: %s", epoch + 1, {k: round(v, 4) for k, v in val_losses.items()})
-            path = CKPT.save_checkpoint(args.logs, cfg.name, epoch + 1, model)
-            logger.info("epoch %d done, checkpoint: %s (losses=%s)", epoch + 1, path, losses)
+            if master:
+                path = CKPT.save_checkpoint(args.logs, cfg.name, epoch + 1, model)
+                logger.info("epoch %d done, checkpoint: %s (losses=%s)", epoch + 1, path, losses)
+            comm.barrier()
     finally:
         batches.close()
         if val_batches is not None:
@@ -525,8 +625,12 @@ def _build_detector(args, cfg: Config):
     from ..inference.detector import build_detector
 
     # --nimg_per_gpu carries through, so that ModelTester's evaluation and
-    # SFinder's tile inference run in batches of that size
-    icfg = inference_config(cfg, images_per_device=max(1, args.nimg_per_gpu), num_devices=max(1, args.ngpu))
+    # SFinder's tile inference run in batches of that size; --ngpu devices
+    # in one process, or one per rank under a launcher
+    from ..parallel.dist import world_size
+
+    ndev = 1 if world_size() > 1 else max(1, args.ngpu)
+    icfg = inference_config(cfg, images_per_device=max(1, args.nimg_per_gpu), num_devices=ndev)
     return build_detector(icfg, weights_path=args.weights, exclude=_exclude_patterns(args), device=args.device)
 
 
@@ -602,7 +706,31 @@ def main(argv: Optional[List[str]] = None) -> int:
     if validate_args(args) < 0:
         return 1
     refuse_unported(args)
+    from ..parallel.dist import get_comm, init_from_env, launcher_env
+
+    env = launcher_env()
+    if env is not None and env["world_size"] > 1:
+        import torch.distributed as dist
+
+        check_launcher(args, env["world_size"])
+        check_device(args.device)
+        args.device = str(init_from_env(args.device))  # this rank's device
+        if env["rank"] != 0:
+            logger.setLevel(logging.WARNING)  # rank 0 logs the run
+        try:
+            rc = run_mode(args)
+            get_comm().barrier()  # no rank tears the group down while another still uses it
+            return rc
+        finally:
+            dist.destroy_process_group()
     check_device(args.device)
+    if args.command == "train" and args.ngpu > 1:
+        return spawn_ranks(argv if argv is not None else sys.argv[1:], args.ngpu)
+    return run_mode(args)
+
+
+def run_mode(args) -> int:
+    """The run mode of ``args`` in this process."""
     cfg = build_config(args)
     logger.info(cfg.display())
     if args.command == "train":

@@ -12,7 +12,8 @@ scripts/train_all_gpu.py) and maps it onto the main CLI's argv
   restore;
 * 256^2 square resize, RPN NMS threshold 0.9, 2 images per device.
 
-``--ngpu`` above 1 is refused by ``cli.run`` (ROADMAP A13).
+``--ngpu N`` passes through: ``cli.run`` trains ``N`` data-parallel
+processes (global batch ``N`` x 2).
 """
 
 from __future__ import annotations

@@ -76,6 +76,14 @@ def _get(q: "queue.Queue", stop: threading.Event):
     return None
 
 
+def _ids_at_rows(stream: Iterator[int], batch_size: int, rows: slice) -> Iterator[int]:
+    """The ids of ``stream`` at ``rows`` of each of its batches of
+    ``batch_size``."""
+    for pos, image_id in enumerate(stream):
+        if rows.start <= pos % batch_size < rows.stop:
+            yield image_id
+
+
 def load_resized(dataset: Dataset, config: Config, image_id: int):
     """Deterministic load + resize stage of :func:`load_image_gt`. Returns
     (image, original_shape, window, scale, mask, class_ids)."""
@@ -317,8 +325,15 @@ class TrainingPipeline:
                 self.rng.shuffle(ids)
             yield from ids
 
-    def batches(self, batch_size: Optional[int] = None) -> Iterator[Dict[str, np.ndarray]]:
-        """Infinite batch iterator; gives up after 5 failed samples in a row."""
+    def batches(self, batch_size: Optional[int] = None,
+                rows: Optional[slice] = None) -> Iterator[Dict[str, np.ndarray]]:
+        """Infinite batch iterator; gives up after 5 failed samples in a row.
+
+        ``rows`` (a data-parallel rank's, ``parallel.mesh.shard_rows``) keeps
+        those rows of every batch: each rank makes the whole batch, because
+        one ``RandomState`` draws every sample's augmentation and RPN
+        targets in turn, and keeps its rows, so that the ranks' rows in
+        rank order are the one-process batch."""
         bs = batch_size or self.config.batch_size
         stream = self._id_stream()
         error_count = 0
@@ -334,9 +349,12 @@ class TrainingPipeline:
                     error_count += 1
                     if error_count > 5:
                         raise
+            if rows is not None:
+                batch = batch[rows]
             yield {k: np.stack([s[k] for s in batch]) for k in batch[0]}
 
-    def prefetch(self, batch_size: Optional[int] = None, device=None) -> Iterator[Dict]:
+    def prefetch(self, batch_size: Optional[int] = None, device=None,
+                 rows: Optional[slice] = None) -> Iterator[Dict]:
         """Batches made ahead by background threads, through a queue of
         ``max_queue`` batches. With ``device`` (a CUDA device) each batch
         is pinned and copied to it asynchronously on the producer's side
@@ -348,6 +366,12 @@ class TrainingPipeline:
         ``RandomState`` seeded from the pipeline's, and an assembler build
         them, so the order of the samples is not fixed. An exception in any
         thread is raised here; closing the iterator stops the threads.
+
+        ``rows`` keeps a data-parallel rank's rows of every batch of
+        ``batch_size``: with one thread as :meth:`batches` keeps them; with
+        more, the sample threads are fed only the ids at those positions of
+        the shuffled stream (the same on every rank of one seed), so that
+        the ranks' batches hold the images of one global batch.
         """
         bs = batch_size or self.config.batch_size
         q: "queue.Queue" = queue.Queue(maxsize=self.max_queue)
@@ -367,11 +391,14 @@ class TrainingPipeline:
                 _put(q, e, stop)
 
         if self.num_workers <= 1:
-            threads.append(threading.Thread(target=put_batches, args=(self.batches(bs),), daemon=True))
+            threads.append(threading.Thread(target=put_batches, args=(self.batches(bs, rows),), daemon=True))
         else:
             id_q: "queue.Queue" = queue.Queue(maxsize=4 * bs)
             sample_q: "queue.Queue" = queue.Queue(maxsize=4 * bs)
             stream = self._id_stream()
+            if rows is not None:
+                stream = _ids_at_rows(stream, bs, rows)
+                bs = rows.stop - rows.start
             seeds = self.rng.randint(2 ** 31, size=self.num_workers)
 
             def id_feeder():

@@ -16,11 +16,25 @@ With ``config.quant_mode="int8"`` the step runs the int8 graph
 does, on given images), and any change of the model's weights after that
 (``load_state_dict``, ``restore_weights``, an edit in place) drops it, so
 the next batch calibrates again.
+
+Over several devices (the JAX package's ``Detector(mesh=...)``) the
+detector holds one model replica per device (``parallel.mesh.local_devices``;
+``config.batch_size`` is the global batch, ``images_per_device`` rows per
+device): ``dispatch_tiles`` and ``detect`` cut the batch into contiguous
+per-device slices and enqueue each replica's step on its own device, with
+nothing read back in between; ``collect`` joins the slices. The replicas
+follow the first device's model whenever its weights change, and the int8
+graph is calibrated once, on the first device over the global batch as
+the one-device detector calibrates, each replica running the same
+quantized tree.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import itertools
+import logging
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -30,53 +44,95 @@ from .. import weights as W
 from ..config import Config
 from ..models.mask_rcnn import MaskRCNN, forward_inference
 from ..models.meta import compose_image_meta
+from ..parallel.mesh import local_devices, shard_rows
 from ..utils import boxes as B
 from ..utils import image as I
 from ..utils.anchors import get_anchors
 
+log = logging.getLogger(__name__)
+
 
 class Detector:
-    """Model on one device, with the detect step and its host halves."""
+    """Model on one device, or one replica per device of a list
+    (``config.num_devices`` of them), with the detect step and its host
+    halves."""
 
     def __init__(self, config: Config, model: MaskRCNN, device):
-        if config.num_devices != 1:
-            raise ValueError("the port runs on one device (num_devices=1)")
         check_inference_config(config)
+        devices = [torch.device(d) for d in (device if isinstance(device, (list, tuple)) else [device])]
+        if len(devices) != config.num_devices:
+            raise ValueError(f"{len(devices)} devices for config.num_devices={config.num_devices}")
         self.config = config
-        self.device = torch.device(device)
+        self.devices = devices
+        self.device = devices[0]
         self.model = model.to(self.device).eval()
-        dev = self.device
-        self._rpn_std = torch.tensor(config.rpn_bbox_std_dev, dtype=torch.float32, device=dev)
-        self._bbox_std = torch.tensor(config.bbox_std_dev, dtype=torch.float32, device=dev)
-        self._mean = torch.tensor(config.mean_pixel, dtype=torch.float32, device=dev)
-        self._consts = {}  # (h, w, c) -> device anchors, tile metas
+        # the replicas of the other devices, loaded from self.model whenever its weights change
+        self._models = [self.model] + [copy.deepcopy(self.model).to(d) for d in devices[1:]]
+        self._models_version = self._weights_version()
+        self._consts_of = [self._device_constants(d) for d in devices]
+        self._rpn_std, self._bbox_std, self._mean = self._consts_of[0]
+        self._consts = {}  # (device index, (h, w, c)) -> device anchors, tile metas
         self.qtree = None  # the int8 graph's numpy tree, once quantized
         self._stages = None  # the int8 graph (heads_int8.DetectStages)
+        self._replica_stages = None  # the other devices' int8 graphs
         self._stages_version = None  # the weights' version it was quantized from
 
-    def _constants(self, shape):
-        """Device-resident anchors and full-frame tile metas per input shape."""
-        key = tuple(int(v) for v in shape)
+    def _device_constants(self, dev):
+        cfg = self.config
+        return tuple(torch.tensor(v, dtype=torch.float32, device=dev)
+                     for v in (cfg.rpn_bbox_std_dev, cfg.bbox_std_dev, cfg.mean_pixel))
+
+    def _constants(self, shape, index: int = 0):
+        """Device ``index``'s anchors and full-frame tile metas (one per row
+        of its slice of the batch) per input shape."""
+        key = (index, tuple(int(v) for v in shape))
         if key not in self._consts:
             cfg = self.config
-            h, w, _ = key
-            meta = compose_image_meta(0, key, key, (0, 0, h, w), 1.0, np.zeros(cfg.num_classes))
-            metas = np.tile(meta, (cfg.batch_size, 1))
+            h, w, _ = key[1]
+            meta = compose_image_meta(0, key[1], key[1], (0, 0, h, w), 1.0, np.zeros(cfg.num_classes))
+            metas = np.tile(meta, (cfg.batch_size // len(self.devices), 1))
+            dev = self.devices[index]
             self._consts[key] = (
-                torch.from_numpy(get_anchors(cfg, key)).to(self.device),
-                torch.from_numpy(metas).to(self.device),
+                torch.from_numpy(get_anchors(cfg, key[1])).to(dev),
+                torch.from_numpy(metas).to(dev),
             )
         return self._consts[key]
 
+    def _replicas(self) -> List[MaskRCNN]:
+        """The model of every device, the replicas loaded with the first
+        device's weights when these changed."""
+        version = self._weights_version()
+        if version != self._models_version:
+            state = self.model.state_dict()
+            for m in self._models[1:]:
+                m.load_state_dict(state)
+            self._models_version = version
+            self._replica_stages = None
+        return self._models
+
+    def _graph(self, index: int):
+        """Device ``index``'s detect graph: its model, or its int8 graph."""
+        models = self._replicas()
+        if self.int8_graph() is None:
+            return models[index]
+        if index == 0:
+            return self._stages
+        if self._replica_stages is None:
+            from ..models import heads_int8 as Q
+
+            self._replica_stages = [Q.int8_stages(m, self.qtree) for m in models[1:]]
+        return self._replica_stages[index - 1]
+
     @torch.inference_mode()
-    def _step(self, molded: torch.Tensor, metas: torch.Tensor, anchors: torch.Tensor, n_in: int):
-        """The detect graph on a device batch; in int8 mode, calibrated
-        first on its ``n_in`` real images when there is no int8 graph for
-        the current weights."""
+    def _step(self, molded: torch.Tensor, metas: torch.Tensor, anchors: torch.Tensor, n_in: int,
+              index: int = 0):
+        """The detect graph of device ``index`` on its batch; in int8 mode,
+        calibrated first on its ``n_in`` real images when there is no int8
+        graph for the current weights (over several devices the caller
+        calibrates on the global batch first)."""
         if self.int8_graph() is None and self.config.quant_mode == "int8":
             self._quantize_molded(molded[:n_in], metas[:n_in], anchors)
-        graph = self.model if self._stages is None else self._stages
-        return forward_inference(graph, molded, metas, anchors, self._rpn_std, self._bbox_std)
+        return forward_inference(self._graph(index), molded, metas, anchors, *self._consts_of[index][:2])
 
     # ------------------------------------------------------- quantization
     def int8_graph(self):
@@ -84,7 +140,7 @@ class Detector:
         weights, or None; one quantized from weights that have changed
         since is dropped."""
         if self._stages is not None and self._stages_version != self._weights_version():
-            self._stages = self.qtree = None
+            self._stages = self.qtree = self._replica_stages = None
         return self._stages
 
     def _weights_version(self) -> int:
@@ -118,6 +174,7 @@ class Detector:
         from ..models import heads_int8 as Q
 
         self._stages = Q.int8_stages(self.model, qtree)
+        self._replica_stages = None
         self.qtree = qtree
         self._stages_version = self._weights_version()
 
@@ -193,23 +250,43 @@ class Detector:
             raise ValueError(f"tiles {tiles.shape[1:3]} != network input {(h, w)}")
         if n_in < bs:
             tiles = np.concatenate([tiles, np.repeat(tiles[-1:], bs - n_in, axis=0)])
-        anchors, metas = self._constants((h, w, c))
         cuda = self.device.type == "cuda"
         host = torch.from_numpy(np.ascontiguousarray(tiles))
         if cuda:
             host = host.pin_memory()
-        raw = host.to(self.device, non_blocking=cuda)
-        # premold on the device: cast, gray -> channels, mean subtraction
-        x = raw.float()
-        if x.dim() == 3:
-            x = x[..., None].expand(-1, -1, -1, c)
-        out = self._step(x - self._mean, metas, anchors, n_in)
-        fetched = [self._to_host(t, cuda) for t in (out.detections, out.masks)]
-        event = None
-        if cuda:
-            event = torch.cuda.Event()
-            event.record()
-        return fetched, event, n_in, (h, w, c)
+
+        def inputs(rows, index):
+            # premold on the device: cast, gray -> channels, mean subtraction
+            x = host[rows].to(self.devices[index], non_blocking=cuda).float()
+            if x.dim() == 3:
+                x = x[..., None].expand(-1, -1, -1, c)
+            metas = self._constants((h, w, c), index)[1]
+            return x - self._consts_of[index][2], metas[:1].expand(x.shape[0], -1)
+
+        return self._run_slices(inputs, n_in, (h, w, c))
+
+    def _run_slices(self, inputs, n_in: int, shape):
+        """Each device's step on its slice of the batch (``inputs(rows,
+        index)`` gives its molded images and metas, on the device), its
+        results' copies to the host started; returns the handle of
+        :meth:`fetch`. Over several devices an int8 graph is calibrated
+        first, on the first device over the global batch's real images."""
+        n = len(self.devices)
+        cuda = self.device.type == "cuda"
+        if n > 1 and self.config.quant_mode == "int8" and self.int8_graph() is None:
+            with torch.inference_mode():
+                self._quantize_molded(*inputs(slice(0, n_in), 0), self._constants(shape)[0])
+        fetched, events = [], []
+        for i, dev in enumerate(self.devices):
+            rows = shard_rows(self.config.batch_size, n, i)
+            anchors = self._constants(shape, i)[0]
+            with torch.cuda.device(dev) if cuda else contextlib.nullcontext():
+                out = self._step(*inputs(rows, i), anchors, max(0, min(n_in, rows.stop) - rows.start), i)
+                fetched.append([self._to_host(t, cuda) for t in (out.detections, out.masks)])
+                if cuda:
+                    events.append(torch.cuda.Event())
+                    events[-1].record()
+        return fetched, events, n_in, shape
 
     @staticmethod
     def _to_host(t: torch.Tensor, pinned: bool) -> torch.Tensor:
@@ -221,10 +298,12 @@ class Detector:
 
     def fetch(self, handle):
         """Wait for a dispatched batch: (detections, masks, n_in, shape)."""
-        (detections, masks), event, n_in, shape = handle
-        if event is not None:
+        fetched, events, n_in, shape = handle
+        for event in events:
             event.synchronize()
-        return detections.numpy(), masks.numpy(), n_in, shape
+        detections, masks = (np.concatenate([f[j].numpy() for f in fetched]) if len(fetched) > 1
+                             else fetched[0][j].numpy() for j in (0, 1))
+        return detections, masks, n_in, shape
 
     def unmold_fetched(self, fetched) -> List[Dict]:
         """Host unmold of a fetched batch (full-frame tile windows)."""
@@ -259,15 +338,12 @@ class Detector:
         if n_in < bs:  # pad the tail to the batch
             molded = np.concatenate([molded, np.repeat(molded[-1:], bs - n_in, axis=0)])
             metas = np.concatenate([metas, np.repeat(metas[-1:], bs - n_in, axis=0)])
-        anchors, _ = self._constants(molded.shape[1:])
-        out = self._step(
-            torch.from_numpy(molded).to(self.device),
-            torch.from_numpy(metas).to(self.device),
-            anchors,
-            n_in,
-        )
-        detections = out.detections.cpu().numpy()
-        masks = out.masks.cpu().numpy()
+
+        def inputs(rows, index):
+            dev = self.devices[index]
+            return torch.from_numpy(molded[rows]).to(dev), torch.from_numpy(metas[rows]).to(dev)
+
+        detections, masks, _, _ = self.fetch(self._run_slices(inputs, n_in, molded.shape[1:]))
         results = []
         for i in range(n_in):
             rois, class_ids, scores, full_masks = self.unmold_detections(
@@ -302,6 +378,10 @@ def build_detector(
 ) -> Detector:
     """Model + weights on ``device``: the card unless the caller asks for
     another device (``device="cpu"`` runs the kernels' plain versions).
+    With ``config.num_devices > 1``, one replica on each of the first
+    ``num_devices`` devices of ``device``'s kind
+    (``parallel.mesh.local_devices``); with fewer there, ``num_devices``
+    shrinks to those (and the global batch with it), with a warning.
 
     The weights start random, made on the CPU from ``seed`` by flax's
     default scheme (so the same seed gives the same weights on every
@@ -313,11 +393,19 @@ def build_detector(
     """
     from ..train.checkpoints import restore_weights
 
+    devices = [torch.device(device)]
     if config.num_devices > 1:
-        raise NotImplementedError(
-            f"num_devices={config.num_devices}: the port detects on one device; data parallelism "
-            "is ROADMAP item A13"
-        )
+        devices = local_devices(torch.device(device).type, config.num_devices)
+        if len(devices) < config.num_devices:
+            # Shrink to the devices that exist instead of running the full
+            # global batch (images_per_device * num_devices) on fewer cards
+            avail = max(len(devices), 1)
+            log.warning(
+                "config.num_devices=%d but only %d local devices: shrinking to num_devices=%d (batch %d -> %d)",
+                config.num_devices, len(devices), avail, config.batch_size, config.images_per_device * avail,
+            )
+            config = config.replace(num_devices=avail)
+            devices = devices or [torch.device(device)]
     model = MaskRCNN(config)
     if weights is not None:
         model.load_state_dict(W.flax_to_state_dict(weights))
@@ -325,4 +413,4 @@ def build_detector(
         W.init_weights(model, torch.Generator().manual_seed(seed))
     if weights_path:
         restore_weights(model, weights_path, exclude=exclude)
-    return Detector(config, model, device)
+    return Detector(config, model, devices if len(devices) > 1 else devices[0])

@@ -1,1 +1,2 @@
-"""Host-side communication between processes (one process until A13)."""
+"""Data parallelism: processes and their communicator (``dist``), devices
+and their rows of a global batch (``mesh``)."""

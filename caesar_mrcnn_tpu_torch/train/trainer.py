@@ -1,5 +1,5 @@
 """Optimizer, stage freezing, device molding, train and eval steps, and the
-training loop (port of ``caesar_mrcnn_tpu/train/trainer.py``, one device).
+training loop (port of ``caesar_mrcnn_tpu/train/trainer.py``).
 
 The optimizer follows the optax chain of the JAX trainer, step for step:
 
@@ -22,6 +22,19 @@ the train step is one micro-step, whose gradient joins the running mean
 ``acc + (g - acc) / (n + 1)``; on every k-th micro-step the chain runs on
 that mean and the mean restarts at 0. In between, the parameters and the
 optimizer's state do not move, and Adam's step count counts updates.
+
+Data parallelism (``group``, a ``torch.distributed`` group of one process
+per device) computes exactly the one-process step on the global batch,
+as the JAX package's step sharded over a ``data`` mesh does: each rank
+holds its contiguous rows of the global batch
+(``parallel.mesh.shard_rows``); the losses are masked means over the
+global batch (``models.losses.global_sums``); the sampling priorities are
+drawn for the global batch from the same generator state on every rank,
+which keeps its own rows; after ``backward`` the gradients are summed over
+the ranks in flat buckets, before the clip and the L2 term see them (as
+optax after the psum), on every micro-step under accumulation. The ranks
+start from rank 0's parameters (:func:`broadcast_parameters`) and stay
+bit-equal.
 """
 
 from __future__ import annotations
@@ -33,11 +46,15 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data.generator import batch_to_device
 from ..models.losses import compute_losses
 from ..models.mask_rcnn import MaskRCNN, check_train_config, forward_train
+from ..models.targets import sampling_width
+from ..parallel.dist import all_reduce_tensors_, broadcast_tensors_
+from ..parallel.mesh import shard_rows
 from ..utils.anchors import get_anchors
 from ..weights import flax_path
 
@@ -241,14 +258,31 @@ def mold_batch(batch: Dict[str, torch.Tensor], cfg: Config, num_anchors: Optiona
 # ------------------------------------------------------------------ steps
 
 
-def _forward_losses(model, b, anchors, rpn_std, cw, priorities, generator):
+def rank_priorities(b: Dict[str, torch.Tensor], cfg: Config, group, priorities=None, generator=None):
+    """This rank's rows of the global batch's sampling priorities: of the
+    given ones (each [B_global, width]), or of those drawn for the global
+    batch from ``generator`` as the one-process step draws them
+    (``targets.detection_targets``: the positive draw, then the negative)."""
+    n = b["images"].shape[0]
+    size = dist.get_world_size(group)
+    rows = shard_rows(n * size, size, dist.get_rank(group))
+    if priorities is None:
+        width = sampling_width(b["rois"].shape[1] if "rois" in b else cfg.post_nms_rois_training, cfg)
+        dev = b["images"].device
+        priorities = tuple(torch.rand((n * size, width), generator=generator, device=dev) for _ in range(2))
+    return tuple(p[rows] for p in priorities)
+
+
+def _forward_losses(model, b, anchors, rpn_std, cw, priorities, generator, group=None):
     cfg = model.config
+    if group is not None:
+        priorities, generator = rank_priorities(b, cfg, group, priorities, generator), None
     outputs = forward_train(
         model, b["images"], b["gt_class_ids"], b["gt_boxes"], b["gt_masks"], anchors, rpn_std,
         ext_rois=b.get("rois"), priorities=priorities, generator=generator,
     )
     active = b["image_meta"][:, 12:]
-    return compute_losses(outputs, b["rpn_match"], b["rpn_deltas"], active, cfg, class_weights=cw)
+    return compute_losses(outputs, b["rpn_match"], b["rpn_deltas"], active, cfg, class_weights=cw, group=group)
 
 
 def _step_constants(model, anchors, class_weights):
@@ -260,11 +294,34 @@ def _step_constants(model, anchors, class_weights):
     return anchors, rpn_std, cw
 
 
+class GradReducer:
+    """Sums the optimizer's parameters' gradients over the ranks of a
+    group, in flat buckets (``parallel.dist.all_reduce_tensors_``); a
+    missing gradient counts as zeros."""
+
+    def __init__(self, params: List[torch.nn.Parameter], group):
+        self.params, self.group = params, group
+        self.bytes = sum(p.numel() * p.element_size() for p in params)
+
+    def reduce(self) -> None:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        all_reduce_tensors_([p.grad for p in self.params], self.group)
+
+
+def broadcast_parameters(model: torch.nn.Module, group=None) -> None:
+    """Every rank's parameters and buffers := rank 0's."""
+    with torch.no_grad():
+        broadcast_tensors_(list(model.parameters()) + list(model.buffers()), 0, group)
+
+
 def make_train_step(
     model: MaskRCNN,
     optimizer: Optimizer,
     anchors: np.ndarray,
     class_weights: Optional[np.ndarray] = None,
+    group=None,
 ) -> Callable:
     """The train step: ``step(batch, priorities=None, generator=None)`` on a
     batch of device tensors (either wire) molds it, runs
@@ -273,31 +330,41 @@ def make_train_step(
 
     ``class_weights`` [C] weighs the head classification loss; a ``"rois"``
     key in the batch replaces the RPN proposals (``ext_rois``).
+
+    With ``group`` the step is this rank's part of the data-parallel step
+    (module docstring): ``batch`` holds its rows of the global batch,
+    ``priorities`` (when given) are the global batch's, the losses are
+    the global batch's. ``step.grad_reducer`` is the gradient all-reduce.
     """
     check_train_config(model.config)
     anchors, rpn_std, cw = _step_constants(model, anchors, class_weights)
+    reducer = GradReducer(optimizer.params, group) if group is not None else None
 
     def step(batch: Dict[str, torch.Tensor], priorities=None, generator=None):
         b = mold_batch(batch, model.config, anchors.shape[0])
         optimizer.zero_grad()
-        losses = _forward_losses(model, b, anchors, rpn_std, cw, priorities, generator)
+        losses = _forward_losses(model, b, anchors, rpn_std, cw, priorities, generator, group)
         losses["total_loss"].backward()
+        if reducer is not None:
+            reducer.reduce()
         optimizer.step()
         return {k: v.detach() for k, v in losses.items()}
 
+    step.grad_reducer = reducer
     return step
 
 
 def make_eval_step(model: MaskRCNN, anchors: np.ndarray,
-                   class_weights: Optional[np.ndarray] = None) -> Callable:
-    """Forward-only losses of a validation batch."""
+                   class_weights: Optional[np.ndarray] = None, group=None) -> Callable:
+    """Forward-only losses of a validation batch (of the global batch with
+    ``group``, as :func:`make_train_step`)."""
     check_train_config(model.config)
     anchors, rpn_std, cw = _step_constants(model, anchors, class_weights)
 
     @torch.no_grad()
     def step(batch: Dict[str, torch.Tensor], priorities=None, generator=None):
         b = mold_batch(batch, model.config, anchors.shape[0])
-        return _forward_losses(model, b, anchors, rpn_std, cw, priorities, generator)
+        return _forward_losses(model, b, anchors, rpn_std, cw, priorities, generator, group)
 
     return step
 

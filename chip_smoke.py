@@ -52,7 +52,35 @@ Phases, one line each:
 9. train parity: one f32 SGD step of ResNet-101 at batch 2, 128^2, on the
    card and on the CPU from the same weights, batch and priorities: losses
    and gradients;
-10. serving: the int8 serving graph (``quant_mode="int8"``, the CLI's
+10. dist: data parallelism (ROADMAP A13) on the one card. Two ranks spawned
+   (``torch.multiprocessing``) over Gloo, both on ``cuda:0``: 3 f32 SGD
+   steps of the training flagship's widths (global batch 8, 4 per rank,
+   2000 given ROIs, 512 ROIs, 300 GT, given global priorities). Held: each
+   step against one process's step on the global batch from the same
+   parameters and optimizer state (losses within 1e-4 relative; the
+   gradients and the optimizer's trace within the relative L2 bounds of
+   ``train parity:``); the trajectory against one process's (losses
+   within 1e-4, the parameters after step 3 within those bounds); the
+   ranks' parameters bit-equal. Printed beside it, not held: two
+   one-process runs against each other, and the updates, which are below
+   the f32 resolution of the parameters here. Then 12 bf16 Adam steps
+   through the RPN path: each rank's median step ms, host ms to make its
+   batch and the gradient all-reduce's ms and MB (Gloo takes the CUDA
+   buckets) beside one process at batch 4 (not a scaling figure: the ranks
+   share the card); the multi-process ``SFinder.run_tiled`` (the f32
+   pinned-heads catalog of ``catalog parity:``'s mosaic equal to one
+   process's exactly, then the bf16 flagship on the 2048^2 mosaic, its
+   catalog files checked). Then one NCCL rank (world size 1) through a
+   train step's all-reduce, the ``Detector`` over ``[cuda:0, cuda:0]``
+   (two replicas, f32, a tile each) within 1e-5 of the one-device
+   ``Detector``, and ``build_detector``'s shrink of ``num_devices=2`` to
+   the one card (its warning). Last, each kernel of the path against its
+   plain version on the inputs the path gave it: rank 0's first parity step
+   (f32, 4 images: ROIAlign forward and backward at pool 7 and 14, the
+   mask-target crop), its first timed step (bf16: the RPN's NMS as well)
+   and replica 0's detect step (f32, one 512^2 tile: both NMS, ROIAlign at
+   pool 7 and 14);
+11. serving: the int8 serving graph (``quant_mode="int8"``, the CLI's
    ``--serving`` preset: 3000 pre-NMS / 512 post-NMS) at the serving
    flagship's width (ResNet-101, FPN 256, batch 8, bf16), on the 16 tiles
    of the seeded 2048^2 mosaic through ``dispatch_tiles``/``collect``, two
@@ -65,11 +93,11 @@ Phases, one line each:
    weights and tiles (CUDA events), its device time by kernel (profiler);
    peak memory; the int8 pyramid's relative L2 error against the folded
    f32 graph's (bound 0.25, as ``tests/test_quant.py``);
-11. serving parity: one quantized tree, calibrated on the CPU, carried to
+12. serving parity: one quantized tree, calibrated on the CPU, carried to
    the card (f32, 256^2, batch 2): the int8 pyramid on the card equal to the
    CPU's bit for bit, and ``SFinder.run_tiled`` with pinned heads over a
    seeded 512^2 mosaic (4 tiles) giving the same catalog on both;
-12. export: the serving export (``inference/export.py``) of the serving
+13. export: the serving export (``inference/export.py``) of the serving
    flagship's bf16 graph and of its int8 graph (calibrated on the first
    batch of the 16 tiles, as ``serving:`` does): export, save and load
    seconds, the artifact's MB and its ``caesar::`` nodes; each artifact
@@ -80,7 +108,7 @@ Phases, one line each:
    bit against ``Detector._step``'s on the same batch, or within 1 bf16
    ulp for the bf16 graph) and detects on the 16 tiles
    (``ServingDetector.detect`` img/s beside ``Detector.detect``'s);
-13. cli: the system's own entry point, ``caesar_mrcnn_tpu_torch.cli.run.main``,
+14. cli: the system's own entry point, ``caesar_mrcnn_tpu_torch.cli.run.main``,
    in-process on the card (its default ``--device cuda``), at the CLI's
    default widths (ResNet-101, bf16, 6000 pre-NMS, 2000/1000 post-NMS, 512
    ROIs, 300 GT): ``train`` (10 Adam steps at 256^2, batch 8, on the 16
@@ -91,7 +119,7 @@ Phases, one line each:
    ``detect --serving`` and ``test --serving`` (the int8 graph): each
    mode's wall time and launches; the train step's time and first and last
    losses;
-14. classify: the classifier CLI, ``caesar_mrcnn_tpu_torch.cli.sclassifier.main``,
+15. classify: the classifier CLI, ``caesar_mrcnn_tpu_torch.cli.sclassifier.main``,
    in-process on the card, on a seeded 1024^2 synthetic sky
    (``data/synthetic.py``: 4 x 4 samples of 256^2) and its Caesar ascii
    catalog, with 256^2 cutouts at the serving flagship's width (ResNet-101,
@@ -108,8 +136,8 @@ Phases, one line each:
    the two catalogs equal row for row (scores within 1e-5).
 
 Then the card's name and power limit, one JSON line with the kernels'
-record (launches on the main paths: detect, catalog, train, serving,
-export, cli and classify; error,
+record (launches on the main paths: detect, catalog, train, dist (its
+two ranks' and the two replicas'), serving, export, cli and classify; error,
 kernel, plain and bound times summed over the cases; ``library_ms`` null,
 with the reason beside it, but for the int8 convolution: ``torch._int_mm``
 at the sites where one matrix product computes its int32 sums), and as the
@@ -273,8 +301,10 @@ def check_nms(dev, rng, card_name: str) -> dict:
 
 
 def roi_align_against_plain(rec: dict, lv, boxes, image: int, pool: int, label: str, card_name: str) -> None:
-    """The forward kernel within 1 bf16 ulp of its plain version, then
-    timed; its bound counts the level pixels these boxes' taps touch."""
+    """The forward kernel within 1 bf16 ulp of its plain version (f32
+    levels: within 1e-5 of the element's absolute-contribution sum, as the
+    backward's f32 check), then timed; its bound counts the level pixels
+    these boxes' taps touch."""
     import torch
 
     from caesar_mrcnn_tpu_torch.ops import roi_align as R
@@ -293,14 +323,20 @@ def roi_align_against_plain(rec: dict, lv, boxes, image: int, pool: int, label: 
     k, p = kernel(), plain()
     torch.cuda.synchronize()
     diff = (k.float() - p.float()).abs()
-    ulp = bf16_ulp(torch.maximum(k.float().abs(), p.float().abs()))
-    if not bool((diff <= ulp).all()):
-        raise AssertionError(f"roi_align {label} {image}^2 N={n} pool={pool}: beyond 1 bf16 ulp, "
+    if lv[0].dtype == torch.float32:
+        name, held = "f32", "within 1e-5 of the absolute-contribution sum"
+        tol = 1e-5 * R.roi_align_plain([f.abs() for f in lv], boxes, (image, image), pool)
+    else:
+        name, held = "bf16", "within 1 bf16 ulp"
+        tol = bf16_ulp(torch.maximum(k.float().abs(), p.float().abs()))
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"roi_align {label} {name} {image}^2 N={n} pool={pool}: not {held}, "
                              f"max abs {float(diff.max())}")
     err = float(diff.max())
     ms, plain_ms = kb.median_ms(kernel, kb.REPS), kb.median_ms(plain, 5)
-    bound = kb.roi_align_bound(boxes, [tuple(f.shape[1:3]) for f in lv], (image, image), pool, c, 2)
-    print(f"kernels: roi_align {label} bf16 {image}^2 B={b} N={n} pool={pool} C={c}: within 1 bf16 ulp "
+    bound = kb.roi_align_bound(boxes, [tuple(f.shape[1:3]) for f in lv], (image, image), pool, c,
+                               lv[0].element_size())
+    print(f"kernels: roi_align {label} {name} {image}^2 B={b} N={n} pool={pool} C={c}: {held} "
           f"(max abs {err:.3g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events); "
           f"{share(bound[0], ms)} ({bound[1]}) [{card_name}]")
     _add(rec, err, ms, plain_ms, bound)
@@ -1323,14 +1359,66 @@ def load_train_dataset(paths):
     return ds
 
 
+class KernelInputs:
+    """The inputs that a step or a detect call gives the kernels, kept on
+    the host. While installed (``with``), the model's call sites of NMS
+    (the RPN's and the per-class one), the ROIAlign forward and the
+    mask-target crop go through wrappers that call the kernels unchanged
+    and, while ``on`` is set, keep each call's inputs, and the gradient that
+    reaches a ROIAlign output, which its backward kernel takes."""
+
+    def __init__(self):
+        self.on = False
+        self.nms, self.roi_align, self.crop = [], [], []
+
+    def __enter__(self):
+        from caesar_mrcnn_tpu_torch.models import detection, mask_rcnn, proposals, targets
+        from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
+        from caesar_mrcnn_tpu_torch.ops.roi_align import crop_and_resize, roi_align
+
+        def nms(boxes, scores, max_out, thr):
+            if self.on:
+                self.nms.append((boxes.cpu(), scores.cpu(), int(max_out), float(thr)))
+            return nms_padded(boxes, scores, max_out, thr)
+
+        def roi(levels, boxes, image_shape, pool):
+            out = roi_align(levels, boxes, image_shape, pool)
+            if self.on:
+                entry = {"levels": [f.detach().cpu() for f in levels], "boxes": boxes.detach().cpu(),
+                         "image": tuple(image_shape), "pool": int(pool)}
+                self.roi_align.append(entry)
+                if out.requires_grad:
+                    out.register_hook(lambda g: entry.__setitem__("grad", g.detach().cpu()))
+            return out
+
+        def crop(masks, boxes, assign, crop_size):
+            if self.on:
+                if not bool(((masks == 0) | (masks == 1)).all()):
+                    raise AssertionError("the step's GT masks hold values other than 0 and 1")
+                self.crop.append((masks.bool().cpu(), masks.dtype, boxes.cpu(), assign.cpu(), tuple(crop_size)))
+            return crop_and_resize(masks, boxes, assign, crop_size)
+
+        sites = [(proposals, "nms_padded", nms), (detection, "nms_padded", nms), (mask_rcnn, "roi_align", roi),
+                 (targets, "crop_and_resize", crop)]
+        self._saved = [(module, name, getattr(module, name)) for module, name, _ in sites]
+        for module, name, fn in sites:
+            setattr(module, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+
+    def inputs(self) -> dict:
+        return {"nms": self.nms, "roi_align": self.roi_align, "crop": self.crop}
+
+
 def check_train(ds, card_name: str) -> dict:
     """20 Adam steps of the training flagship through the pipeline."""
     import torch
 
     from caesar_mrcnn_tpu_torch import weights as W
     from caesar_mrcnn_tpu_torch.data.generator import TrainingPipeline
-    from caesar_mrcnn_tpu_torch.models import proposals as P
-    from caesar_mrcnn_tpu_torch.models import targets as TG
     from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN, forward_train
     from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
     from caesar_mrcnn_tpu_torch.ops.roi_align import crop_and_resize, roi_align, roi_align_backward
@@ -1379,29 +1467,21 @@ def check_train(ds, card_name: str) -> dict:
 
     # the targets of the last batch: rounded masks in {0, 1}, only on positives;
     # and the RPN's boxes and scores before its NMS and the mask-target
-    # crop's inputs, captured for the kernel checks on a real step's inputs
-    captured = {}
-
-    def capture_nms(boxes, scores, *args):
-        captured["nms"] = (boxes.clone(), scores.clone(), *args)
-        return nms_padded(boxes, scores, *args)
-
-    def capture_crop(masks, boxes, assign, crop_size):
-        captured["crop"] = (masks, boxes.clone(), assign.clone(), tuple(crop_size))
-        return crop_and_resize(masks, boxes, assign, crop_size)
-
-    with torch.no_grad():
+    # crop's inputs, kept for the kernel checks on a real step's inputs
+    with torch.no_grad(), KernelInputs() as inputs:
+        inputs.on = True
         b = T.mold_batch(batch, cfg)
-        P.nms_padded, TG.crop_and_resize = capture_nms, capture_crop
-        try:
-            out = forward_train(model, b["images"], b["gt_class_ids"], b["gt_boxes"], b["gt_masks"],
-                                torch.from_numpy(pipe.anchors_normalized()).cuda(),
-                                torch.tensor(cfg.rpn_bbox_std_dev, device="cuda"), generator=gen)
-        finally:
-            P.nms_padded, TG.crop_and_resize = nms_padded, crop_and_resize
+        out = forward_train(model, b["images"], b["gt_class_ids"], b["gt_boxes"], b["gt_masks"],
+                            torch.from_numpy(pipe.anchors_normalized()).cuda(),
+                            torch.tensor(cfg.rpn_bbox_std_dev, device="cuda"), generator=gen)
+    if len(inputs.nms) != 1 or len(inputs.crop) != 1:
+        raise AssertionError(f"a train forward made {len(inputs.nms)} NMS and {len(inputs.crop)} crop calls")
+    (boxes, scores, max_out, thr), = inputs.nms
+    (masks, dtype, crop_boxes, assign, crop), = inputs.crop
     pos_cap = int(cfg.train_rois_per_image * cfg.roi_positive_ratio)
-    captured["rois"] = {cfg.pool_size: out.rois.contiguous(),
-                        cfg.mask_pool_size: out.rois[:, :pos_cap].contiguous()}
+    captured = {"nms": (boxes.cuda(), scores.cuda(), max_out, thr),
+                "crop": (masks.cuda().to(dtype), crop_boxes.cuda(), assign.cuda(), crop),
+                "rois": {cfg.pool_size: out.rois.contiguous(), cfg.mask_pool_size: out.rois[:, :pos_cap].contiguous()}}
     tm = out.target_masks
     positive = (out.target_class_ids > 0).float()
     if not bool(((tm == 0) | (tm == 1)).all()) or not bool((tm.flatten(2).amax(2) <= positive).all()):
@@ -1453,6 +1533,36 @@ def check_train_step_boxes(captured: dict, recs: dict, card_name: str) -> None:
     crop_against_plain(recs["crop_and_resize"], masks, crop_boxes, assign, crop, "train-step", card_name)
 
 
+# the relative L2 error bounds of a gradient by group of parameters (check_train_parity)
+GRAD_BOUNDS = {"backbone": 1e-2, "FPN and heads": 1e-3}
+
+
+def worst_rel(got: dict, ref: dict) -> dict:
+    """The worst relative L2 error ``|got - ref| / |ref|`` of the tensors
+    of ``ref`` by group of parameters: (error, name) per group."""
+    worst = {group: (0.0, "") for group in GRAD_BOUNDS}
+    for k, r in ref.items():
+        r = r.double()
+        rel = float((got[k].double().to(r.device) - r).norm() / r.norm().clamp_min(1e-30))
+        group = "backbone" if k.startswith("backbone.") else "FPN and heads"
+        worst[group] = max(worst[group], (rel, k))
+    return worst
+
+
+def beyond(worst: dict) -> bool:
+    return any(worst[group][0] > bound for group, bound in GRAD_BOUNDS.items())
+
+
+def show(worst: dict, held: bool = True) -> str:
+    return ", ".join(f"{g} {rel:.3g} ({k}" + (f"; bound {GRAD_BOUNDS[g]:g})" if held else ")")
+                     for g, (rel, k) in worst.items())
+
+
+def max_rel(got: dict, ref: dict) -> float:
+    """The largest relative difference of the losses ``got`` from ``ref``."""
+    return max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12) for k in ref)
+
+
 def check_train_parity(ds, card_name: str) -> None:
     """One f32 SGD step of ResNet-101, batch 2, 128^2, at the flagship's
     learning rate, on the card and on the CPU: same weights (nonzero biases
@@ -1500,20 +1610,528 @@ def check_train_parity(ds, card_name: str) -> None:
         results.append(({k: float(v) for k, v in losses.items()},
                         {k: v.grad.cpu().double() for k, v in model.named_parameters()}))
     (gl, gg), (cl, cg) = results
-    loss_rel = max(abs(gl[k] - cl[k]) / max(abs(cl[k]), 1e-12) for k in cl)
-    bounds = {"backbone": 1e-2, "FPN and heads": 1e-3}
-    worst = {group: (0.0, "") for group in bounds}
-    for k, ref in cg.items():
-        rel = float((gg[k] - ref).norm() / ref.norm().clamp_min(1e-30))
-        group = "backbone" if k.startswith("backbone.") else "FPN and heads"
-        worst[group] = max(worst[group], (rel, k))
+    loss_rel = max_rel(gl, cl)
+    worst = worst_rel(gg, cg)
     print(f"train parity: one f32 SGD step (learning rate {cfg.learning_rate}), ResNet-101 batch 2 128^2, card vs "
           f"CPU: losses max rel diff {loss_rel:.3g} (total {gl['total_loss']:.6f} / {cl['total_loss']:.6f}); "
-          "gradients' worst relative L2 error: "
-          + ", ".join(f"{group} {rel:.3g} ({k}; bound {bounds[group]:g})" for group, (rel, k) in worst.items())
-          + f" [{card_name}]")
-    if loss_rel > 1e-4 or any(worst[group][0] > bound for group, bound in bounds.items()):
+          f"gradients' worst relative L2 error: {show(worst)} [{card_name}]")
+    if loss_rel > 1e-4 or beyond(worst):
         raise AssertionError(f"train parity beyond its bounds: losses {gl} vs {cl}; gradients {worst}")
+
+
+# --------------------------------------------------------------------- dist
+
+DIST_STEPS = 3  # f32 SGD steps of the data-parallel parity
+DIST_TIMED = 12  # bf16 Adam steps of the timing run (median of the last 10)
+
+
+def _dist_counters():
+    from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
+    from caesar_mrcnn_tpu_torch.ops.roi_align import crop_and_resize, roi_align, roi_align_backward
+
+    return {"nms": nms_padded, "roi_align": roi_align, "roi_align_backward": roi_align_backward,
+            "crop_and_resize": crop_and_resize}
+
+
+def _zero_launches() -> None:
+    for k in _dist_counters().values():
+        k.launches = 0
+
+
+def _launches() -> dict:
+    return {name: k.launches for name, k in _dist_counters().items()}
+
+
+def _restore_launches(counts: dict) -> None:
+    for name, k in _dist_counters().items():
+        k.launches = counts[name]
+
+
+def _train_parity_inputs(ds, job: str) -> None:
+    """The f32 parity's inputs, written to ``job``: the flagship's settled
+    random weights (nonzero biases and batch norms), three global batches of
+    8 with given ROIs, and their global sampling priorities."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch import weights as W
+    from caesar_mrcnn_tpu_torch.data.generator import TrainingPipeline
+    from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from caesar_mrcnn_tpu_torch.models.targets import sampling_width
+
+    cfg = _dist_parity_config()
+    it = TrainingPipeline(ds, cfg, seed=SEED).batches()
+    batches = [next(it) for _ in range(DIST_STEPS)]
+    width = sampling_width(batches[0]["rois"].shape[1], cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    priorities = [tuple(torch.rand((cfg.batch_size, width), generator=gen) for _ in range(2)) for _ in batches]
+    model = MaskRCNN(cfg)
+    W.init_weights(model, torch.Generator().manual_seed(SEED))
+    randomize_affine(model)
+    settle_random_weights(model)
+    torch.save({"state": model.state_dict(), "batches": batches, "priorities": priorities}, job)
+
+
+def _dist_parity_config(**kw):
+    """The training flagship's widths at f32, SGD, given ROIs (2000 of
+    them), global batch 8 over two ranks."""
+    return train_config(compute_dtype="float32", optimizer="sgd", use_rpn_rois=False, images_per_device=4,
+                        num_devices=2, **kw)
+
+
+def _sgd_steps(model, cfg, batches, priorities, device, group=None, rank=0, world=1, reference=None,
+               capture=None):
+    """``len(batches)`` f32 SGD steps, on this rank's rows of each global
+    batch with a group, on all of it without; returns each step's losses.
+
+    With ``reference`` (a second model), before each step the reference
+    takes this model's parameters and optimizer state and makes the
+    one-process step on the whole global batch; the two steps are compared,
+    and the second list returned holds, per step, the losses' largest
+    relative difference and the worst relative L2 errors of the gradients
+    and of the optimizer's trace (the update before the learning rate: the
+    clipped gradient, the L2 term and the momentum). ``capture``
+    (:class:`KernelInputs`) keeps the first step's kernel inputs."""
+    from caesar_mrcnn_tpu_torch.parallel.mesh import shard_batch
+    from caesar_mrcnn_tpu_torch.train import trainer as T
+    from caesar_mrcnn_tpu_torch.utils.anchors import get_anchors
+
+    def grads(opt):
+        return {n: p.grad if p.grad is not None else p.new_zeros(p.shape) for n, p in zip(opt.names, opt.params)}
+
+    anchors = get_anchors(cfg)
+    opt = T.make_optimizer(cfg, model, "all")
+    step = T.make_train_step(model, opt, anchors, group=group)
+    if reference is not None:
+        ref_opt = T.make_optimizer(cfg, reference, "all")
+        ref_step = T.make_train_step(reference, ref_opt, anchors)
+    losses, same_state = [], []
+    for k, (batch, prio) in enumerate(zip(batches, priorities)):
+        prio = tuple(p.to(device) for p in prio)
+        if reference is not None:  # a comparison: its launches are not the path's
+            counts = _launches()
+            reference.load_state_dict(model.state_dict())
+            for mine, theirs in zip(ref_opt.state["trace"], opt.state["trace"]):
+                mine.copy_(theirs)
+            ref_losses = ref_step(T.batch_to_device(batch, device), priorities=prio)
+            _restore_launches(counts)
+        local = shard_batch(batch, world, rank) if group is not None else batch
+        if capture is not None:
+            capture.on = k == 0
+        out = step(T.batch_to_device(local, device), priorities=prio)
+        if capture is not None:
+            capture.on = False
+        losses.append({n: float(v) for n, v in out.items()})
+        if reference is not None:
+            same_state.append({
+                "losses": max_rel(losses[-1], {n: float(v) for n, v in ref_losses.items()}),
+                "gradients": worst_rel(grads(opt), grads(ref_opt)),
+                "trace": worst_rel(dict(zip(opt.names, opt.state["trace"])),
+                                   dict(zip(ref_opt.names, ref_opt.state["trace"]))),
+            })
+    return losses, same_state
+
+
+def _timed_train(ds_paths, cfg, group, rank, world, device, capture=None) -> dict:
+    """DIST_TIMED bf16 Adam steps through the RPN path on this rank's rows
+    of the pipeline's global batches: the median step ms (CUDA events), the
+    median host ms to make a batch (``next`` of ``TrainingPipeline.batches``,
+    one sample thread: a rank makes the whole global batch and keeps its
+    rows) and, with a group, the gradient all-reduce's median ms and MB.
+    ``capture`` (:class:`KernelInputs`) keeps the first step's kernel
+    inputs."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch import weights as W
+    from caesar_mrcnn_tpu_torch.data.generator import TrainingPipeline
+    from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from caesar_mrcnn_tpu_torch.parallel.mesh import shard_rows
+    from caesar_mrcnn_tpu_torch.train import trainer as T
+
+    pipe = TrainingPipeline(load_train_dataset(ds_paths), cfg, seed=SEED, augmentation=True, cache_bytes=1 << 30)
+    rows = shard_rows(cfg.batch_size, world, rank) if group is not None else None
+    batches = pipe.batches(rows=rows)
+    model = MaskRCNN(cfg)
+    W.init_weights(model, torch.Generator().manual_seed(SEED))
+    settle_random_weights(model)
+    model.to(device)
+    if group is not None:
+        T.broadcast_parameters(model, group)
+    step = T.make_train_step(model, T.make_optimizer(cfg, model, "all"), pipe.anchors_normalized(), group=group)
+    reduce_ms = []
+    if group is not None:
+        reducer = step.grad_reducer
+        reduce = reducer.reduce
+
+        def timed_reduce():
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            reduce()
+            torch.cuda.synchronize(device)
+            reduce_ms.append(1e3 * (time.perf_counter() - t))
+
+        reducer.reduce = timed_reduce
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    events, totals, data_ms = [], [], []
+    for k in range(DIST_TIMED):
+        t = time.perf_counter()
+        batch = next(batches)
+        data_ms.append(1e3 * (time.perf_counter() - t))
+        batch = T.batch_to_device(batch, device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if capture is not None:
+            capture.on = k == 0
+        start.record()
+        losses = step(batch, generator=gen)
+        end.record()
+        if capture is not None:
+            capture.on = False
+        events.append((start, end))
+        totals.append(losses["total_loss"])
+    torch.cuda.synchronize(device)
+    if not all(bool(torch.isfinite(t)) for t in totals):
+        raise AssertionError(f"dist: non-finite losses in the timed run {[float(t) for t in totals]}")
+    out = {"step_ms": statistics.median(s.elapsed_time(e) for s, e in events[2:]),
+           "data_ms": statistics.median(data_ms[2:]), "first_loss": float(totals[0]),
+           "last_loss": float(totals[-1])}
+    if group is not None:
+        out.update(reduce_ms=statistics.median(reduce_ms[2:]), reduce_mb=step.grad_reducer.bytes / 2 ** 20)
+    return out
+
+
+def _dist_catalogs(tmp: str, device, stem: str) -> dict:
+    """SFinder.run_tiled in this process (one rank of a group, or alone):
+    the f32 pinned-heads catalog of the seeded 1024^2 blocks mosaic (batch
+    4) and the bf16 flagship's of the seeded 2048^2 mosaic (batch 8, every
+    detection kept), written by rank 0 to ``tmp/<stem>_f32`` and
+    ``tmp/<stem>_bf16``; wall seconds of each."""
+    from caesar_mrcnn_tpu_torch.analysis.sfinder import SFinder
+    from caesar_mrcnn_tpu_torch.inference.detector import build_detector
+    from caesar_mrcnn_tpu_torch.testing import pin_heads
+
+    walls = {}
+    for name, cfg, mosaic in (("f32", flagship_config(images_per_device=4, compute_dtype="float32",
+                                                      split_img_in_tiles=True), "blocks.fits"),
+                              ("bf16", flagship_config(score_thr=0.0, split_img_in_tiles=True), "mosaic.fits")):
+        det = build_detector(cfg, seed=SEED, device=device)
+        (pin_heads if name == "f32" else settle_random_weights)(det.model)
+        sf = SFinder(det, cfg)
+        out = os.path.join(tmp, f"{stem}_{name}")
+        sf.outfile_json, sf.outfile_ds9 = f"{out}.json", f"{out}.reg"
+        t = time.perf_counter()
+        sf.run_tiled(os.path.join(tmp, mosaic))
+        walls[name] = time.perf_counter() - t
+    return walls
+
+
+def dist_worker(rank: int, world: int, port: int, tmp: str, ds_paths: list) -> None:
+    """One rank of the ``dist:`` phase, spawned by :func:`check_dist`: both
+    ranks on ``cuda:0`` over Gloo. Writes ``tmp/rank<r>.json`` (losses,
+    rank 0's comparisons of every parity step with one process's step from
+    the same state, timings, launches, whether its parameters equal rank
+    0's bit for bit); rank 0 also writes its parameters after the parity
+    steps to ``tmp/dp_params.pt`` and the kernel inputs of its first parity
+    step and its first timed step to ``tmp/kernel_inputs.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from caesar_mrcnn_tpu_torch.parallel import dist as D
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    backend = D.init_process_group(rank, world, device, port=port, timeout_s=300.0)
+    group = dist.group.WORLD
+    out = {"backend": backend}
+    _zero_launches()
+
+    job = torch.load(os.path.join(tmp, "parity.pt"), weights_only=False)
+    cfg = _dist_parity_config()
+    model = MaskRCNN(cfg)
+    model.load_state_dict(job["state"])
+    model.to(device)
+    reference = MaskRCNN(cfg).to(device) if rank == 0 else None
+    parity, timed = KernelInputs(), KernelInputs()
+    with parity:
+        out["parity_losses"], out["same_state"] = _sgd_steps(
+            model, cfg, job["batches"], job["priorities"], device, group, rank, world, reference,
+            parity if rank == 0 else None)
+    params = [p.detach() for p in model.parameters()]
+    theirs = [p.clone() for p in params]
+    D.broadcast_tensors_(theirs, 0, group)
+    out["unequal_to_rank0"] = int(sum(int((a != b).sum()) for a, b in zip(params, theirs)))
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(tmp, "dp_params.pt"))
+    del model, reference, params, theirs, job
+    torch.cuda.empty_cache()
+
+    with timed:
+        out["timed"] = _timed_train(ds_paths, train_config(images_per_device=4, num_devices=2), group, rank, world,
+                                    device, timed if rank == 0 else None)
+    if rank == 0:
+        torch.save({"parity": parity.inputs(), "timed": timed.inputs()}, os.path.join(tmp, "kernel_inputs.pt"))
+    del parity, timed
+    torch.cuda.empty_cache()
+    out["catalog_s"] = _dist_catalogs(tmp, device, "two")
+    out["launches"] = _launches()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_dist(ds, ds_paths: list, recs: dict, card_name: str) -> dict:
+    """Data parallelism on the one card (ROADMAP A13): two spawned ranks over
+    Gloo, both on ``cuda:0``, then one NCCL rank, then the Detector over two
+    devices; then the kernels against their plain versions on the inputs
+    this path gave them (:func:`check_dist_kernels`). Not a scaling
+    measurement: the two ranks share one card."""
+    import logging
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from caesar_mrcnn_tpu_torch.parallel.dist import free_port
+    from caesar_mrcnn_tpu_torch.testing import catalog_differences
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _train_parity_inputs(ds, os.path.join(tmp, "parity.pt"))
+        write_blocks_mosaic(os.path.join(tmp, "blocks.fits"), 1024, 1024)
+        write_mosaic(os.path.join(tmp, "mosaic.fits"), 2048)
+        t = time.perf_counter()
+        mp.start_processes(dist_worker, args=(2, free_port(), tmp, ds_paths), nprocs=2, join=True,
+                           start_method="spawn")
+        spawn_s = time.perf_counter() - t
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        dp_params = torch.load(os.path.join(tmp, "dp_params.pt"))
+        kernel_inputs = torch.load(os.path.join(tmp, "kernel_inputs.pt"))
+
+        # the one-process references on the card: the global batch of 8, twice
+        # (two runs of one process differ as the ranks differ from one), then batch 4 alone
+        job = torch.load(os.path.join(tmp, "parity.pt"), weights_only=False)
+        cfg = _dist_parity_config()
+        runs = []
+        for _ in range(2):
+            model = MaskRCNN(cfg)
+            model.load_state_dict(job["state"])
+            model.to("cuda")
+            losses, _ = _sgd_steps(model, cfg, job["batches"], job["priorities"], "cuda")
+            runs.append((losses, {k: p.detach().cpu() for k, p in model.named_parameters()}))
+            del model
+            torch.cuda.empty_cache()
+        start = job["state"]
+        one_timed = _timed_train(ds_paths, train_config(images_per_device=4), None, 0, 1, "cuda")
+        one_catalog_s = _dist_catalogs(tmp, "cuda", "one")
+        catalogs = {}
+        for stem in ("one", "two"):
+            for name in ("f32", "bf16"):
+                with open(os.path.join(tmp, f"{stem}_{name}.json")) as f:
+                    catalogs[stem, name] = json.load(f)
+        with open(os.path.join(tmp, "two_bf16.reg")) as f:
+            regions = f.read()
+
+    (one_losses, one_params), (again_losses, again_params) = runs
+    names = list(one_params)
+    dp_params = {k: dp_params[k] for k in names}
+    loss_rel = max(max_rel(got, ref) for got, ref in zip(ranks[0]["parity_losses"], one_losses))
+    again_rel = max(max_rel(got, ref) for got, ref in zip(again_losses, one_losses))
+    ranks_equal = ranks[0]["parity_losses"] == ranks[1]["parity_losses"] and ranks[1]["unequal_to_rank0"] == 0
+    same_state = ranks[0]["same_state"]
+    params = worst_rel(dp_params, one_params)
+
+    def updates(got):
+        return {k: got[k].double() - start[k].double() for k in names}
+
+    print(f"dist: data-parallel train parity, 2 ranks over {ranks[0]['backend']} on cuda:0, {DIST_STEPS} f32 SGD "
+          f"steps of ResNet-101 256^2 (global batch 8 = 4 per rank, 2000 given ROIs, 512 ROIs, 300 GT, given "
+          f"global priorities) [{card_name}]")
+    for k, s in enumerate(same_state):
+        print(f"dist: step {k + 1} against one process's step on the global batch from the same parameters and "
+              f"optimizer state: losses max rel diff {s['losses']:.3g} (bound 1e-4); worst relative L2 error of "
+              f"the gradients: {show(s['gradients'])}; of the optimizer's trace: {show(s['trace'])}")
+    print(f"dist: the trajectory against one process's on the card: losses max rel diff {loss_rel:.3g} (bound "
+          f"1e-4); parameters after step {DIST_STEPS}: {show(params)}; ranks' parameters bit-equal: "
+          f"{ranks_equal}. Not held, two one-process runs against each other: losses {again_rel:.3g}, parameters "
+          f"{show(worst_rel(again_params, one_params), False)}; the updates (parameters after step {DIST_STEPS} "
+          f"less the start), ranks against one process {show(worst_rel(updates(dp_params), updates(one_params)), False)}, "
+          f"one process against itself {show(worst_rel(updates(again_params), updates(one_params)), False)}")
+    failures = []
+    if (loss_rel > 1e-4 or not ranks_equal or beyond(params) or len(same_state) != DIST_STEPS
+            or any(s["losses"] > 1e-4 or beyond(s["gradients"]) or beyond(s["trace"]) for s in same_state)):
+        failures.append(f"data-parallel train parity beyond its bounds: losses {loss_rel}, parameters {params}, "
+                        f"ranks equal {ranks_equal}, steps from the same state {same_state}")
+
+    timed = [r["timed"] for r in ranks]
+    print(f"dist: data-parallel timing, {DIST_TIMED} bf16 Adam steps of the training flagship through the RPN "
+          f"path (2000 post-NMS proposals), 4 images per rank: step ms per rank "
+          f"{[round(t['step_ms'], 2) for t in timed]} (median of steps 3-{DIST_TIMED}, CUDA events), gradient "
+          f"all-reduce {[round(t['reduce_ms'], 2) for t in timed]} ms of {timed[0]['reduce_mb']:.1f} MB (Gloo, "
+          f"the CUDA buckets as they are), host batch {[round(t['data_ms'], 2) for t in timed]} ms per rank "
+          f"(each makes the global batch of 8 and keeps its 4); one process at batch 4 on the card alone: step "
+          f"{one_timed['step_ms']:.2f} ms, host batch {one_timed['data_ms']:.2f} ms. NOT a scaling figure: the "
+          f"two ranks share one card [{card_name}]")
+    if abs(timed[0]["last_loss"] - timed[1]["last_loss"]) > 0:
+        failures.append(f"the ranks' global losses differ: {timed}")
+
+    # one NCCL rank: the backend comes up and the all-reduce path runs
+    import torch.distributed as dist
+
+    from caesar_mrcnn_tpu_torch.parallel import dist as D
+
+    backend = D.init_process_group(0, 1, "cuda:0", port=free_port(), timeout_s=300.0)
+    try:
+        nccl = _timed_train(ds_paths, train_config(images_per_device=4), dist.group.WORLD, 0, 1,
+                            torch.device("cuda", 0))
+    finally:
+        dist.destroy_process_group()
+    print(f"dist: one {backend} rank (world size 1): train step {nccl['step_ms']:.2f} ms, all-reduce "
+          f"{nccl['reduce_ms']:.2f} ms of {nccl['reduce_mb']:.1f} MB; losses "
+          f"{nccl['first_loss']:.4f} -> {nccl['last_loss']:.4f} [{card_name}]")
+    if backend != "nccl":
+        failures.append(f"the one-card rank came up on {backend}, not NCCL")
+
+    diffs = catalog_differences(catalogs["one", "f32"], catalogs["two", "f32"])
+    bf16 = catalogs["two", "bf16"]
+    no_polygon = check_catalog_files(bf16, bf16, regions, 2048, 2048)
+    print(f"dist: multi-process catalog, SFinder.run_tiled on 2 Gloo ranks (cuda:0): f32 pinned heads, 4 tiles of the "
+          f"seeded 1024^2 mosaic: {len(catalogs['two', 'f32']['objs'])} sources, {len(diffs)} differences from the "
+          f"one-process catalog (exact); bf16 flagship, 16 tiles of the seeded 2048^2 mosaic: {len(bf16['objs'])} "
+          f"sources ({no_polygon} without a DS9 polygon; one process: {len(catalogs['one', 'bf16']['objs'])}), "
+          f"wall per rank {[round(r['catalog_s']['bf16'], 2) for r in ranks]} s, one process "
+          f"{one_catalog_s['bf16']:.2f} s; catalog files checked [{card_name}]")
+    if diffs or not catalogs["two", "f32"]["objs"]:
+        failures.append("the two-process f32 catalog differs:\n" + "\n".join(diffs[:20]))
+
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    # per rank: the parity steps (given ROIs: no NMS), the timed steps, one batch of each catalog
+    per_rank = {"nms": DIST_TIMED + 4, "roi_align": 2 * (DIST_STEPS + DIST_TIMED) + 4,
+                "roi_align_backward": 2 * (DIST_STEPS + DIST_TIMED), "crop_and_resize": DIST_STEPS + DIST_TIMED}
+    if any(r["launches"] != per_rank for r in ranks):
+        failures.append(f"launches per rank {[r['launches'] for r in ranks]}, expected {per_rank}")
+    detect, detect_inputs = check_dist_detect(card_name)
+    launches = {k: launches[k] + detect.get(k, 0) for k in launches}
+
+    seen = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    from caesar_mrcnn_tpu_torch.inference import detector as TD
+
+    handler = Capture(logging.WARNING)
+    TD.log.addHandler(handler)
+    try:
+        shrunk = TD.build_detector(flagship_config(num_devices=2, images_per_device=1, compute_dtype="float32"),
+                                   seed=SEED, device="cuda")
+    finally:
+        TD.log.removeHandler(handler)
+    print(f"dist: build_detector(num_devices=2) on {torch.cuda.device_count()} card(s): num_devices "
+          f"{shrunk.config.num_devices}, batch {shrunk.config.batch_size}; warning: {seen} [{card_name}]")
+    if torch.cuda.device_count() == 1 and (shrunk.config.num_devices != 1 or not seen):
+        failures.append("build_detector did not shrink to the one card")
+    print(f"dist: phase {time.perf_counter() - t0:.2f} s (the spawned ranks {spawn_s:.2f} s); launches {launches} "
+          f"[{card_name}]")
+    if failures:
+        raise AssertionError("dist: " + "\ndist: ".join(failures))
+    # after the path's launches were read
+    check_dist_kernels(kernel_inputs, detect_inputs, recs, card_name)
+    return launches
+
+
+def check_dist_kernels(rank_inputs: dict, detect_inputs: dict, recs: dict, card_name: str) -> None:
+    """The kernels against their plain versions on the inputs that the dist
+    path gave them: rank 0's first parity step (f32, 4 images of 256^2,
+    given ROIs: the ROIAlign forward at pool 7 and 14, its backward on the
+    gradients that reached those outputs, the mask-target crop), its first
+    timed step (bf16, the RPN path: NMS as well) and replica 0's step of
+    the two-replica detect (f32, one 512^2 tile: the RPN's and the
+    per-class NMS, ROIAlign at pool 7 and 14). The tolerances of the seeded
+    cases: NMS exact; the ROIAlign forward within 1 bf16 ulp, at f32 within
+    1e-5 of the element's absolute-contribution sum; the backward and the
+    crop as there."""
+    from caesar_mrcnn_tpu_torch.ops.roi_align import roi_levels
+
+    expected = {"DP rank parity step": (0, 2, 1), "DP rank timed step": (1, 2, 1), "2-replica detect": (2, 2, 0)}
+    cases = {"DP rank parity step": rank_inputs["parity"], "DP rank timed step": rank_inputs["timed"],
+             "2-replica detect": detect_inputs}
+    for label, cap in cases.items():
+        got = (len(cap["nms"]), len(cap["roi_align"]), len(cap["crop"]))
+        if got != expected[label]:
+            raise AssertionError(f"dist: {label} kept {got} NMS, ROIAlign and crop inputs, expected {expected[label]}")
+        for boxes, scores, max_out, thr in cap["nms"]:
+            nms_against_plain(recs["nms"], boxes.cuda(), scores.cuda(), max_out, thr, label, card_name)
+        for entry in cap["roi_align"]:
+            (image, width), pool = entry["image"], entry["pool"]
+            levels, boxes = [f.cuda() for f in entry["levels"]], entry["boxes"].cuda()
+            if image != width:
+                raise AssertionError(f"dist: {label} ROIAlign at {image}x{width}")
+            per_level = roi_levels(boxes, float(image * width)).flatten().long().bincount(minlength=4).tolist()
+            print(f"kernels: {label} ROIs at pool {pool}: {tuple(boxes.shape[:2])}, per level P2..P5 {per_level}")
+            roi_align_against_plain(recs["roi_align"], levels, boxes, image, pool, label, card_name)
+            if "grad" in entry:
+                backward_against_plain(recs["roi_align_backward"], entry["grad"].cuda(), boxes, label, card_name)
+            elif label != "2-replica detect":
+                raise AssertionError(f"dist: {label} ROIAlign at pool {pool}: no gradient reached its output")
+        for masks, dtype, boxes, assign, crop in cap["crop"]:
+            crop_against_plain(recs["crop_and_resize"], masks.cuda().to(dtype), boxes.cuda(), assign.cuda(), crop,
+                               label, card_name)
+
+
+def check_dist_detect(card_name: str) -> tuple:
+    """The Detector over two devices from one process, both ``cuda:0`` (two
+    replicas, f32, one tile each) against the one-device Detector on the
+    same batch of two tiles: detections within 1e-5. Returns its launches
+    and the kernel inputs of replica 0's step."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch import weights as W
+    from caesar_mrcnn_tpu_torch.inference.detector import Detector
+    from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from caesar_mrcnn_tpu_torch.testing import compare_detections
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mosaic.fits")
+        write_mosaic(path)
+        tiles = read_tiles(path, 2048, 512)[4:6]
+    cfg = flagship_config(images_per_device=1, num_devices=2, compute_dtype="float32")
+    model = MaskRCNN(cfg)
+    W.init_weights(model, torch.Generator().manual_seed(SEED))
+    settle_random_weights(model)
+    two = Detector(cfg, model, [torch.device("cuda", 0)] * 2)
+    _zero_launches()
+    with KernelInputs() as captured:
+        captured.on = True
+        got = two.fetch(two.dispatch_tiles(tiles))
+    launches = _launches()
+    one = Detector(cfg.replace(images_per_device=2, num_devices=1), model, "cuda")
+    ref = one.fetch(one.dispatch_tiles(tiles))
+    worst = {"compared": 0, "unmatched": 0, "class_mismatch": 0, "max_scores_diff": 0.0, "max_boxes_diff": 0.0}
+    for i in range(2):
+        raw = [{"boxes": d[i][d[i][:, 4] > 0][:, :4], "class_ids": d[i][d[i][:, 4] > 0][:, 4],
+                "scores": d[i][d[i][:, 4] > 0][:, 5]} for d in (ref[0], got[0])]
+        cmp = compare_detections(*raw)
+        for k in worst:
+            worst[k] = worst[k] + cmp[k] if k in ("compared", "unmatched", "class_mismatch") else max(worst[k], cmp[k])
+    print(f"dist: Detector over [cuda:0, cuda:0] (two replicas, f32, one 512^2 tile each) vs the one-device "
+          f"Detector on the same 2 tiles: {worst['compared']} isolated detections compared, {worst['unmatched']} "
+          f"unmatched, max score diff {worst['max_scores_diff']:.3g}, max box diff {worst['max_boxes_diff']:.3g} "
+          f"(bound 1e-5); launches {launches} [{card_name}]")
+    if (worst["compared"] == 0 or worst["unmatched"] or worst["class_mismatch"]
+            or worst["max_scores_diff"] > 1e-5 or worst["max_boxes_diff"] > 1e-5):
+        raise AssertionError(f"dist: two-replica detect differs from the one-device Detector: {worst}")
+    if launches != {"nms": 4, "roi_align": 4, "roi_align_backward": 0, "crop_and_resize": 0}:
+        raise AssertionError(f"dist: two-replica detect launches {launches}, expected 2 NMS and 2 ROIAlign per replica")
+    if len(captured.nms) != 4 or len(captured.roi_align) != 4:
+        raise AssertionError(f"dist: two-replica detect kept {len(captured.nms)} NMS and {len(captured.roi_align)} "
+                             "ROIAlign inputs, expected 4 and 4")
+    # replica 0's step is enqueued first: its RPN NMS, ROIAlign at pool 7, per-class NMS, ROIAlign at pool 14
+    return launches, {"nms": captured.nms[:2], "roi_align": captured.roi_align[:2], "crop": []}
 
 
 # ---------------------------------------------------------------------- cli
@@ -1794,40 +2412,26 @@ def check_classify_kernels(det, sky: str, cat: str, recs: dict, card_name: str) 
     import torch
 
     from caesar_mrcnn_tpu_torch.analysis.classifier import SClassifier
-    from caesar_mrcnn_tpu_torch.models import detection as D
-    from caesar_mrcnn_tpu_torch.models import mask_rcnn as M
-    from caesar_mrcnn_tpu_torch.models import proposals as P
-    from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
-    from caesar_mrcnn_tpu_torch.ops.roi_align import roi_align, roi_levels
+    from caesar_mrcnn_tpu_torch.ops.roi_align import roi_levels
 
     sc = SClassifier(det, det.config)
     sc.scutout_size = det.config.image_min_dim
     if sc.read_img(sky) or sc.read_scatalog(cat):
         raise AssertionError("the classify sky or catalog did not read back")
     cutout = sc._make_cutout(sc.sources[0])
-    captured = {"nms": [], "roi_align": []}
-
-    def capture_nms(boxes, scores, max_out, thr):
-        captured["nms"].append((boxes.clone(), scores.clone(), max_out, thr))
-        return nms_padded(boxes, scores, max_out, thr)
-
-    def capture_roi(levels, boxes, image_shape, pool):
-        captured["roi_align"].append(([f.clone() for f in levels], boxes.clone(), tuple(image_shape), pool))
-        return roi_align(levels, boxes, image_shape, pool)
-
-    P.nms_padded, D.nms_padded, M.roi_align = capture_nms, capture_nms, capture_roi
-    try:
+    with KernelInputs() as inputs:
+        inputs.on = True
         det.detect([cutout])
-    finally:
-        P.nms_padded, D.nms_padded, M.roi_align = nms_padded, nms_padded, roi_align
-    if len(captured["nms"]) != 2 or len(captured["roi_align"]) != 2:
-        raise AssertionError(f"one classify detect made {len(captured['nms'])} NMS and "
-                             f"{len(captured['roi_align'])} ROIAlign calls, expected 2 and 2")
+    if len(inputs.nms) != 2 or len(inputs.roi_align) != 2:
+        raise AssertionError(f"one classify detect made {len(inputs.nms)} NMS and "
+                             f"{len(inputs.roi_align)} ROIAlign calls, expected 2 and 2")
     print(f"kernels: classify inputs: one Detector.detect of the classify path on {sc.sources[0].name}'s "
           f"cutout {cutout.shape[:2]} [{card_name}]")
-    for (boxes, scores, max_out, thr), label in zip(captured["nms"], ("classify RPN", "classify per-class")):
-        nms_against_plain(recs["nms"], boxes, scores, max_out, thr, label, card_name)
-    for levels, boxes, (image, width), pool in captured["roi_align"]:
+    for (boxes, scores, max_out, thr), label in zip(inputs.nms, ("classify RPN", "classify per-class")):
+        nms_against_plain(recs["nms"], boxes.cuda(), scores.cuda(), max_out, thr, label, card_name)
+    for entry in inputs.roi_align:
+        levels, boxes, (image, width), pool = ([f.cuda() for f in entry["levels"]], entry["boxes"].cuda(),
+                                               entry["image"], entry["pool"])
         if image != width or any(f.dtype != torch.bfloat16 for f in levels):
             raise AssertionError(f"classify ROIAlign at {image}x{width}, levels {[f.dtype for f in levels]}")
         per_level = torch.bincount(roi_levels(boxes, float(image * width)).flatten().long(), minlength=4).tolist()
@@ -1971,11 +2575,15 @@ def main() -> None:
     catalog = check_catalog(card_name)
     check_catalog_parity(card_name)
     with tempfile.TemporaryDirectory() as tmp:
-        ds = load_train_dataset(write_train_dataset(tmp))
+        ds_paths = write_train_dataset(tmp)
+        ds = load_train_dataset(ds_paths)
         train, captured = check_train(ds, card_name)
         check_train_step_boxes(captured, {"nms": nms, "roi_align": roi, "roi_align_backward": roi_bwd,
                                           "crop_and_resize": crop}, card_name)
         check_train_parity(ds, card_name)
+        torch.cuda.empty_cache()
+        dist = check_dist(ds, ds_paths, {"nms": nms, "roi_align": roi, "roi_align_backward": roi_bwd,
+                                         "crop_and_resize": crop}, card_name)
     torch.cuda.empty_cache()
     serving, serving_routes = check_serving(card_name)
     check_serving_parity(card_name)
@@ -1990,9 +2598,9 @@ def main() -> None:
     t = time.perf_counter()
     classify = check_classify({"nms": nms, "roi_align": roi}, card_name)
     print(f"classify: phase {time.perf_counter() - t:.2f} s [{card_name}]")
-    print(f"launches: detect path {detect}, catalog path {catalog}, train path {train}, serving path {serving}, "
-          f"export path {export}, cli {cli}, classify {classify}")
-    paths = (detect, catalog, train, serving, export, cli, classify)
+    print(f"launches: detect path {detect}, catalog path {catalog}, train path {train}, dist {dist}, "
+          f"serving path {serving}, export path {export}, cli {cli}, classify {classify}")
+    paths = (detect, catalog, train, dist, serving, export, cli, classify)
 
     def record(name, source, replaces, rec, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"caesar_mrcnn_tpu_torch/csrc/{source}",

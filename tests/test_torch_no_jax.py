@@ -228,6 +228,41 @@ def test_classifier_eval_and_synthetic_without_jax_cv2_matplotlib_h5py():
     assert "host ok" in proc.stdout
 
 
+DIST = """
+import torch
+import torch.distributed as dist
+sys.path.insert(0, "tests")
+import torch_dist_worker
+from caesar_mrcnn_tpu_torch.parallel import dist as D
+from caesar_mrcnn_tpu_torch.parallel.mesh import local_devices, shard_batch, shard_rows
+from caesar_mrcnn_tpu_torch.train.trainer import broadcast_parameters
+assert D.init_process_group(0, 1, "cpu", port=D.free_port(), timeout_s=60.0) == "gloo"
+assert isinstance(D.get_comm(), D.SerialComm)  # a group of one
+ts = [torch.ones(3), torch.arange(4.0)]
+D.all_reduce_tensors_(ts, dist.group.WORLD)
+broadcast_parameters(torch.nn.Linear(2, 2), dist.group.WORLD)
+assert torch.equal(ts[1], torch.arange(4.0)) and shard_rows(4, 2, 1) == slice(2, 4)
+assert local_devices("cpu", 2) == [torch.device("cpu")] * 2
+cfg, det = torch_dist_worker.sfinder_detector("pinned")
+assert det.config.split_img_in_tiles
+dist.destroy_process_group()
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in _Blocked.names)
+assert not loaded, loaded
+print("dist ok")
+"""
+
+
+def test_dist_modules_and_worker_import_without_jax():
+    """``parallel/dist.py``, ``parallel/mesh.py`` and the multi-process
+    tests' worker (``tests/torch_dist_worker.py``) import, and a Gloo group
+    of one process comes up, reduces, broadcasts and goes, with jax, flax,
+    optax, orbax, cv2, networkx, matplotlib, h5py and ``caesar_mrcnn_tpu``
+    blocked."""
+    proc = _run(["-c", BLOCK_IMPORTS + DIST], cwd=REPO, env_extra={"PYTHONPATH": str(REPO)})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "dist ok" in proc.stdout
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py drives the port alone: every module it imports is the
     standard library, numpy, torch or ``caesar_mrcnn_tpu_torch``, and none
@@ -247,14 +282,15 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
-    """No module of the port (nor chip_smoke.py) imports ``caesar_mrcnn_tpu``
+    """No module of the port (nor chip_smoke.py, nor the multi-process
+    tests' worker ``tests/torch_dist_worker.py``) imports ``caesar_mrcnn_tpu``
     or a module under it, or jax, flax, optax, orbax, cv2, networkx or
     matplotlib, anywhere (inside functions too), by absolute import; and
     the re-export module ``host`` is gone."""
     pkg = REPO / "caesar_mrcnn_tpu_torch"
     assert not (pkg / "host.py").exists()
     offending = []
-    for path in sorted(pkg.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+    for path in sorted(pkg.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_worker.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 mods = [a.name for a in node.names]

@@ -1,8 +1,8 @@
 """``TrainingPipeline.prefetch`` (the port's threaded prefetch, in place of
 the JAX package's ``jax.device_put`` queue), on the CPU with
 ``tests/test_train.py``'s tiny dataset: the order and content of its
-batches, its sample threads, errors raised in the consumer, and its threads
-ending when the consumer stops."""
+batches, its sample threads, a data-parallel rank's rows, errors raised in
+the consumer, and its threads ending when the consumer stops."""
 
 import threading
 import time
@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from caesar_mrcnn_tpu_torch.data.dataset import SourceDataset
 from caesar_mrcnn_tpu_torch.data.generator import TrainingPipeline
+from caesar_mrcnn_tpu_torch.parallel.mesh import shard_rows
 from torch_train_fixtures import tiny_config, tiny_dataset
 
 # the sample's keys that depend on the image alone (the RPN targets sample
@@ -23,6 +25,38 @@ DETERMINISTIC = ("images", "image_meta", "gt_class_ids", "gt_boxes", "gt_masks_p
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
     return tiny_dataset(tmp_path_factory.mktemp("data"))
+
+
+@pytest.fixture(scope="module")
+def dataset8(tmp_path_factory):
+    """The tiny dataset's four images listed twice: eight image ids, so
+    that a global batch of four holds half of an epoch."""
+    tmp = tmp_path_factory.mktemp("data8")
+    tiny_dataset(tmp)
+    ds = SourceDataset()
+    ds.set_class_dict({"sidelobe": 1, "source": 2, "galaxy": 3})
+    for _ in range(2):
+        assert ds.load_data_from_list(str(tmp / "list.dat")) == 0
+    ds.prepare()
+    assert len(ds.image_ids) == 8
+    return ds
+
+
+def _take(it, n, timeout=60.0):
+    """``n`` batches of ``it``, read in a daemon thread; fails when they do
+    not all come within ``timeout`` (a rank whose threads are fed no id
+    would wait for ever)."""
+    out = []
+
+    def read():
+        for _ in range(n):
+            out.append(next(it))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    reader.join(timeout)
+    assert not reader.is_alive() and len(out) == n, f"{len(out)} of {n} batches within {timeout} s"
+    return out
 
 
 def _threads_end(before, timeout=10.0):
@@ -102,3 +136,42 @@ def test_prefetch_raises_a_failing_sample_in_the_consumer(dataset, num_workers, 
     with pytest.raises(OSError, match="cannot read image"):
         next(pipe.prefetch())
     assert _threads_end(before)
+
+
+@pytest.mark.parametrize("num_workers", [0, 2])
+def test_prefetch_rows_of_two_ranks_make_the_global_batches(dataset8, num_workers):
+    """Two data-parallel ranks' ``prefetch(rows=...)`` (global batch 4, two
+    rows each, pipelines of one seed) make the one-process pipeline's
+    global batches between them. With one thread, the rows of
+    ``batches()``'s, exactly. With two sample threads, each rank's samples
+    are the images at its rows' positions of the shuffled id stream (the
+    ids after the threads' seeds, as above), up to the threads' order: at
+    most two of the first six batches' ids taken from the seventh's."""
+    cfg = tiny_config(images_per_device=2, num_devices=2)
+    bs, n = cfg.batch_size, 6
+    ranks = []
+    for r in range(2):
+        before = set(threading.enumerate())
+        it = TrainingPipeline(dataset8, cfg, seed=3, num_workers=num_workers).prefetch(rows=shard_rows(bs, 2, r))
+        ranks.append(_take(it, n))
+        it.close()
+        assert _threads_end(before)
+    if num_workers <= 1:
+        ref = TrainingPipeline(dataset8, cfg, seed=3).batches()
+        for k in range(n):
+            want = next(ref)
+            for key in want:
+                np.testing.assert_array_equal(np.concatenate([ranks[0][k][key], ranks[1][k][key]]), want[key],
+                                              err_msg=key)
+        return
+    twin = TrainingPipeline(dataset8, cfg, seed=3)
+    twin.rng.randint(2 ** 31, size=num_workers)
+    stream = twin._id_stream()
+    fed = [int(next(stream)) for _ in range(bs * (n + 1))]
+    for r, batches in enumerate(ranks):
+        rows = shard_rows(bs, 2, r)
+        mine = [fed[k * bs + j] for k in range(n + 1) for j in range(rows.start, rows.stop)]
+        ids = [int(i) for b in batches for i in b["image_meta"][:, 0]]
+        assert len(ids) == n * 2
+        assert not Counter(ids) - Counter(mine), (r, ids, mine)
+        assert sum((Counter(mine[: n * 2]) - Counter(ids)).values()) <= num_workers, (r, ids, mine)

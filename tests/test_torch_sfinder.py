@@ -133,8 +133,10 @@ def test_sfinder_serial_equals_jax(window, mosaic, tmp_path, monkeypatch):
 
 
 def test_sfinder_refuses_what_the_port_does_not_take(mosaic, tmp_path, monkeypatch):
-    """The raw wire is on the ROADMAP's "Not to port" list, the overlay
-    waits for A16 and more than one process for A13: each raises."""
+    """The raw wire is on the ROADMAP's "Not to port" list and the overlay
+    waits for A16: each raises; so does a launcher's ``WORLD_SIZE`` above 1
+    without an initialized process group, so that no rank writes a
+    catalog of its own tiles alone."""
     monkeypatch.chdir(tmp_path)
     tcfg, _ = _configs(split_img_in_tiles=True, tile_wire="raw", image_min_dim=128, image_max_dim=128)
     with pytest.raises(ValueError, match="Not to port"):
@@ -144,7 +146,7 @@ def test_sfinder_refuses_what_the_port_does_not_take(mosaic, tmp_path, monkeypat
     with pytest.raises(NotImplementedError, match="A16"):
         sf.run(mosaic)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(RuntimeError, match="no torch.distributed group is initialized"):
         TSFinder(FakeDetector(), _configs(split_img_in_tiles=True)[0])
     monkeypatch.setenv("WORLD_SIZE", "1")
     assert isinstance(dist.get_comm(), dist.SerialComm)
