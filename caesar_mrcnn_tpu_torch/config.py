@@ -2,11 +2,14 @@
 
 The port's copy of ``caesar_mrcnn_tpu/config.py``: the same fields, defaults
 and presets, so that a configuration built from the same keywords equals the
-JAX package's field by field. The training knobs the port does not
-implement yet (``train_remat``, ``train_bn``, ``opt_state_dtype`` other
-than ``"float32"``) raise where they are read, and so does
-``tile_wire="raw"`` (read by ``analysis/sfinder.py``, which takes ``"u8"``
-and ``"slow"``). The ``Detector`` reads ``quant_mode`` (``"int8"`` runs the
+JAX package's field by field. Every training knob is implemented:
+``train_bn`` (trainable batch norm with the batch's statistics, global
+under data parallelism), ``train_remat`` (``"none"``, ``"backbone"``,
+``"all"``; another value raises) and ``opt_state_dtype`` (the first
+moment's dtype: ``"float32"``, ``"bfloat16"`` or ``"float16"``; another
+value raises). ``tile_wire="raw"`` raises where it is read
+(``analysis/sfinder.py``, which takes ``"u8"`` and ``"slow"``). The
+``Detector`` reads ``quant_mode`` (``"int8"`` runs the
 int8 graph of ``models/heads_int8.py``; a value other than ``"none"`` and
 ``"int8"`` raises) and refuses a ``roi_gather_dtype`` other than
 ``"none"`` (not to port); ``rpn_fused_heads`` is not ported (ROADMAP A2)
@@ -166,9 +169,10 @@ class Config:
     # for the JAX package on a TPU).
     opt_state_dtype: str = "float32"
     # Training rematerialization policy: "none" stores all activations;
-    # "backbone" wraps the backbone+FPN feature pass in jax.checkpoint
-    # (recompute in the backward, ~1 extra feature pass of FLOPs for the
-    # largest activation savings); "all" also remats the two heads.
+    # "backbone" wraps the backbone+FPN feature pass in
+    # torch.utils.checkpoint (recompute in the backward, ~1 extra feature
+    # pass of FLOPs for the largest activation savings); "all" also remats
+    # the two heads. Ignored, with a warning, under train_bn.
     train_remat: str = "none"
     # Gradient accumulation (optax.MultiSteps): the optimizer averages
     # grads over k consecutive micro-batch steps and applies ONE update,

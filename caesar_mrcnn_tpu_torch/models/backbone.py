@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv2d, FrozenBatchNorm
+from .layers import BatchNorm, Conv2d, FrozenBatchNorm
 
 # stage-4 identity-block count per architecture
 BLOCK_COUNTS = {"resnet50": 5, "resnet101": 22}
@@ -36,21 +36,22 @@ def max_pool_same(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 -> 1x1 with an optional projection shortcut."""
+    """1x1 -> 3x3 -> 1x1 with an optional projection shortcut; ``bn`` is the
+    batch norm class (:func:`batch_norm`)."""
 
     def __init__(self, cin: int, filters: Tuple[int, int, int], stride: int = 1,
-                 project: bool = False):
+                 project: bool = False, bn=FrozenBatchNorm):
         super().__init__()
         f1, f2, f3 = filters
         self.conv1 = Conv2d(cin, f1, 1, stride=stride)
-        self.bn1 = FrozenBatchNorm(f1)
+        self.bn1 = bn(f1)
         self.conv2 = Conv2d(f1, f2, 3, padding=1)
-        self.bn2 = FrozenBatchNorm(f2)
+        self.bn2 = bn(f2)
         self.conv3 = Conv2d(f2, f3, 1)
-        self.bn3 = FrozenBatchNorm(f3)
+        self.bn3 = bn(f3)
         if project:
             self.shortcut = Conv2d(cin, f3, 1, stride=stride)
-            self.shortcut_bn = FrozenBatchNorm(f3)
+            self.shortcut_bn = bn(f3)
         else:
             self.shortcut = None
 
@@ -62,15 +63,23 @@ class Bottleneck(nn.Module):
         return F.relu(y + sc)
 
 
+def batch_norm(train_bn: bool):
+    """The batch norm class of ``config.train_bn``: trainable (batch
+    statistics in training) or frozen, as the JAX package's
+    ``FrozenableBatchNorm``."""
+    return BatchNorm if train_bn else FrozenBatchNorm
+
+
 class ResNet(nn.Module):
     """Backbone producing (C2, C3, C4, C5); resnet50 | resnet101 | custom."""
 
-    def __init__(self, architecture: str = "resnet101", in_channels: int = 3):
+    def __init__(self, architecture: str = "resnet101", in_channels: int = 3, train_bn: bool = False):
         super().__init__()
         stem, widths = stage_widths(architecture)
         n4 = 1 if architecture == "custom" else BLOCK_COUNTS[architecture]
+        bn = batch_norm(train_bn)
         self.conv1 = Conv2d(in_channels, stem, 7, stride=2, padding=3)
-        self.bn_conv1 = FrozenBatchNorm(stem)
+        self.bn_conv1 = bn(stem)
         stages = [
             ["res2a", "res2b", "res2c"],
             ["res3a", "res3b", "res3c", "res3d"],
@@ -83,7 +92,7 @@ class ResNet(nn.Module):
             for j, name in enumerate(names):
                 first = j == 0
                 block = Bottleneck(cin, filters, stride=(1 if i == 0 else 2) if first else 1,
-                                   project=first)
+                                   project=first, bn=bn)
                 self.add_module(name, block)
                 cin = filters[2]
 

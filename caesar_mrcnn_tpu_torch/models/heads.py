@@ -8,21 +8,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv2d, ConvTranspose2d, FrozenBatchNorm, Linear
+from .backbone import batch_norm
+from .layers import Conv2d, ConvTranspose2d, Linear
 
 
 class ClassifierHead(nn.Module):
     """ROI features -> (class logits, probs, per-class bbox deltas), all f32."""
 
     def __init__(self, num_classes: int, pool_size: int = 7, fc_size: int = 1024,
-                 in_channels: int = 256):
+                 in_channels: int = 256, train_bn: bool = False):
         super().__init__()
         self.num_classes = num_classes
+        bn = batch_norm(train_bn)
         # the first FC is a VALID conv over the whole pool window
         self.mrcnn_class_conv1 = Conv2d(in_channels, fc_size, pool_size)
-        self.mrcnn_class_bn1 = FrozenBatchNorm(fc_size)
+        self.mrcnn_class_bn1 = bn(fc_size)
         self.mrcnn_class_conv2 = Conv2d(fc_size, fc_size, 1)
-        self.mrcnn_class_bn2 = FrozenBatchNorm(fc_size)
+        self.mrcnn_class_bn2 = bn(fc_size)
         self.mrcnn_class_logits = Linear(fc_size, num_classes)
         self.mrcnn_bbox_fc = Linear(fc_size, num_classes * 4)
 
@@ -50,12 +52,13 @@ class ClassifierHead(nn.Module):
 class MaskHead(nn.Module):
     """ROI features -> per-class sigmoid masks NHWC [R, 2p, 2p, classes], f32."""
 
-    def __init__(self, num_classes: int, in_channels: int = 256):
+    def __init__(self, num_classes: int, in_channels: int = 256, train_bn: bool = False):
         super().__init__()
         cin = in_channels
+        bn = batch_norm(train_bn)
         for i in range(1, 5):
             self.add_module(f"mrcnn_mask_conv{i}", Conv2d(cin, 256, 3, padding=1))
-            self.add_module(f"mrcnn_mask_bn{i}", FrozenBatchNorm(256))
+            self.add_module(f"mrcnn_mask_bn{i}", bn(256))
             cin = 256
         self.mrcnn_mask_deconv = ConvTranspose2d(256, 256, 2, stride=2)
         self.mrcnn_mask = Conv2d(256, num_classes, 1)

@@ -7,23 +7,30 @@ the detected class's mask channel, and the u8 mask wire.
 :func:`forward_train` is the training graph: features, RPN, proposals (NMS
 kernel) and targets (crop_and_resize kernel) without gradient, ROIAlign at
 7 and at 14 on the positive prefix (kernel, with its backward kernel), and
-the heads.
+the heads; under ``train_bn`` with the batch's statistics, which it
+returns for the train step to commit; under ``train_remat`` with the
+feature pass (and the heads) recomputed in the backward.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+import logging
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.roi_align import roi_align
 from .backbone import FPN, ResNet, stage_widths
 from .detection import refine_detections
 from .heads import ClassifierHead, MaskHead
+from .layers import batch_statistics
 from .proposals import generate_proposals
 from .rpn import RPNHead
 from .targets import detection_targets
+
+log = logging.getLogger(__name__)
 
 
 def compute_dtype(config) -> torch.dtype:
@@ -40,13 +47,14 @@ class MaskRCNN(nn.Module):
         self.dtype = compute_dtype(config)
         widths = [w[2] for w in stage_widths(config.backbone)[1]]
         ch = config.top_down_pyramid_size
-        self.backbone = ResNet(config.backbone, config.image_channel_count)
+        train_bn = bool(config.train_bn)
+        self.backbone = ResNet(config.backbone, config.image_channel_count, train_bn)
         self.fpn = FPN(tuple(widths), ch)
         self.rpn_head = RPNHead(ch, len(config.rpn_anchor_ratios), config.rpn_anchor_stride)
         self.classifier_head = ClassifierHead(
-            config.num_classes, config.pool_size, config.fpn_classif_fc_layers_size, ch
+            config.num_classes, config.pool_size, config.fpn_classif_fc_layers_size, ch, train_bn
         )
-        self.mask_head = MaskHead(config.num_classes, ch)
+        self.mask_head = MaskHead(config.num_classes, ch, train_bn)
 
     def features(self, images: torch.Tensor):
         """images NHWC [B, H, W, C] -> (P2, ..., P6), NCHW channels_last."""
@@ -153,14 +161,29 @@ class TrainForward(NamedTuple):
     target_deltas: torch.Tensor     # [B, R, 4]
     target_masks: torch.Tensor      # [B, R, mh, mw]
     rois: torch.Tensor              # [B, R, 4]
+    # train_bn: each batch norm's batch (mean, var) by module name, for the
+    # train step to commit (layers.commit_batch_stats); None when frozen
+    batch_stats: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
 
 
-def check_train_config(cfg) -> None:
-    """Refuse the training options the port does not have yet (ROADMAP A11)."""
-    if getattr(cfg, "train_remat", "none") != "none":
-        raise NotImplementedError("train_remat other than 'none' is not ported yet (ROADMAP A11)")
-    if cfg.train_bn:
-        raise NotImplementedError("train_bn=True is not ported yet (ROADMAP A11)")
+REMAT_POLICIES = ("none", "backbone", "all")
+
+
+def remat_policy(cfg, warn: bool = False) -> str:
+    """The rematerialization ``forward_train`` applies: ``cfg.train_remat``,
+    or ``"none"`` under ``train_bn`` (the JAX package ignores remat there,
+    with a warning, which ``warn`` logs: ``make_train_step`` and
+    ``make_eval_step`` ask for it, once).
+    An unknown policy raises."""
+    remat = getattr(cfg, "train_remat", "none")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown train_remat {remat!r}")
+    if cfg.train_bn and remat != "none":
+        if warn:
+            log.warning("train_remat=%r is ignored with train_bn=True (the batch statistics are not "
+                        "recomputed) - running without rematerialization", remat)
+        return "none"
+    return remat
 
 
 def forward_train(
@@ -174,20 +197,48 @@ def forward_train(
     ext_rois: Optional[torch.Tensor] = None,
     priorities: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    group=None,
 ) -> TrainForward:
-    """Training forward: head outputs and sampled targets (frozen batch
-    norm; the JAX ``forward_train`` with ``train_remat="none"``).
+    """Training forward: head outputs and sampled targets (the JAX
+    ``forward_train``).
 
     Proposals and targets are built without gradient: they are labels.
     ``ext_rois`` [B, P, 4] replaces the proposals (head-only training with
     given ROIs); the RPN still runs for its losses. ``priorities`` and
     ``generator`` go to :func:`~.targets.detection_targets`. The mask head
     runs on the positive prefix of the ROIs only: the targets put every
-    positive there, and the mask loss ignores the other slots.
+    positive there, and the mask loss ignores the other slots (its batch
+    statistics under ``train_bn`` cover the whole prefix, padded slots
+    included, as in JAX).
+
+    ``train_bn``: every batch norm normalizes with the batch's statistics
+    (the global batch's with ``group``, a data-parallel process group) and
+    ``batch_stats`` returns them; nothing here moves the running ones.
+    ``train_remat`` (:func:`remat_policy`): ``"backbone"`` recomputes the
+    feature pass (backbone and FPN) in the backward, ``"all"`` the two
+    heads too; the regions are JAX's, so ROIAlign, the proposals and the
+    targets run once.
     """
     cfg = model.config
-    check_train_config(cfg)
-    pyramid = model.features(images)
+    remat = remat_policy(cfg)
+    if cfg.train_bn:
+        with batch_statistics(model, group) as stats:
+            out = _forward_train(model, remat, images, gt_class_ids, gt_boxes, gt_masks, anchors,
+                                 rpn_bbox_std_dev, ext_rois, priorities, generator)
+        return out._replace(batch_stats=stats)
+    return _forward_train(model, remat, images, gt_class_ids, gt_boxes, gt_masks, anchors, rpn_bbox_std_dev,
+                          ext_rois, priorities, generator)
+
+
+def _recomputed(fn, *args):
+    """``fn(*args)`` whose activations are recomputed in the backward."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _forward_train(model, remat, images, gt_class_ids, gt_boxes, gt_masks, anchors, rpn_bbox_std_dev,
+                   ext_rois, priorities, generator) -> TrainForward:
+    cfg = model.config
+    pyramid = _recomputed(model.features, images) if remat != "none" else model.features(images)
     rpn_logits, rpn_probs, rpn_bbox = model.rpn(pyramid)
 
     with torch.no_grad():
@@ -208,11 +259,12 @@ def forward_train(
     levels = nhwc_levels(pyramid)
     image_shape = cfg.image_shape[:2]
     pooled = roi_align(levels, rois, image_shape, cfg.pool_size)
-    class_logits, _, bbox_deltas = model.classifier(pooled)
+    heads = _recomputed if remat == "all" else (lambda fn, *args: fn(*args))
+    class_logits, _, bbox_deltas = heads(model.classifier, pooled)
 
     pos_cap = int(cfg.train_rois_per_image * cfg.roi_positive_ratio)
     mask_pooled = roi_align(levels, rois[:, :pos_cap].contiguous(), image_shape, cfg.mask_pool_size)
-    masks = model.mask(mask_pooled)
+    masks = heads(model.mask, mask_pooled)
     return TrainForward(
         rpn_class_logits=rpn_logits,
         rpn_bbox=rpn_bbox,

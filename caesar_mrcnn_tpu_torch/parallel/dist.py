@@ -22,7 +22,9 @@ The port of ``caesar_mrcnn_tpu/parallel/dist.py`` over ``torch.distributed``:
   collective per flat bucket, on the tensors' own device under either
   backend (Gloo takes CUDA tensors too); the gradient all-reduce and the
   global loss sums that use them live in ``train/trainer.py`` and
-  ``models/losses.py``.
+  ``models/losses.py``;
+* :func:`all_reduce_sum`, a sum over the ranks under autograd (the global
+  batch statistics of ``models/layers.py::BatchNorm``).
 """
 
 from __future__ import annotations
@@ -259,3 +261,30 @@ def broadcast_tensors_(tensors: List[torch.Tensor], src: int = 0, group=None,
                        bucket_bytes: int = BUCKET_BYTES) -> None:
     """Overwrite each tensor with rank ``src``'s, in flat buckets."""
     _bucketed_(tensors, lambda flat: dist.broadcast(flat, src, group=group), bucket_bytes)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the ranks; its backward is the sum of the incoming
+    gradients over the ranks (``torch.nn.SyncBatchNorm``'s rule): every
+    rank's output is the same global sum, so each rank's input reaches the
+    loss terms of every rank through it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group``, with the gradient of the
+    global sum (:class:`_AllReduceSum`). Every rank must call it, in the same
+    order, in the forward and, when a gradient reaches it, in the backward."""
+    return _AllReduceSum.apply(x, group)

@@ -1,6 +1,8 @@
 """Checkpoint save and restore with partial loading by name (port of
 ``caesar_mrcnn_tpu/train/checkpoints.py`` with ``torch.save`` files in
-place of orbax directories; reading orbax checkpoints is not ported).
+place of orbax directories; the port reads no orbax directory itself:
+``tools/orbax_to_pt.py``, run where orbax is installed, converts the JAX
+package's weights checkpoints into these ``.pt`` files).
 
 * :func:`restore_weights` is the entry point behind every ``--weights``
   flag: a ``.pt`` file of this module, or a reference-format Keras ``.h5``
@@ -79,9 +81,9 @@ def restore_weights(
     ``.h5``/``.hdf5`` file; ``exclude`` as in :func:`partial_restore`.
     Returns (loaded names, skipped names)."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory (an orbax checkpoint of the JAX package): the port reads .pt and "
-            ".h5 weights only; the orbax import is ROADMAP item A12"
+        raise ValueError(
+            f"{path} is a directory (an orbax checkpoint of the JAX package): the port reads .pt and .h5 "
+            f"weights only. Convert it where jax and orbax are installed: python3 tools/orbax_to_pt.py {path}"
         )
     if path.endswith((".h5", ".hdf5")):
         from .keras_import import restore_from_keras_h5

@@ -35,6 +35,29 @@ the ranks in flat buckets, before the clip and the L2 term see them (as
 optax after the psum), on every micro-step under accumulation. The ranks
 start from rank 0's parameters (:func:`broadcast_parameters`) and stay
 bit-equal.
+
+``train_bn``: the forward normalizes with the batch's statistics, and the
+step commits them to the running ones (``models.layers.commit_batch_stats``)
+on every call, micro-steps included (the JAX package's ``step_fn`` runs per
+micro-batch; only the optimizer is wrapped in ``MultiSteps``). Under data
+parallelism they are the global batch's: each batch norm sums its ranks'
+``(sum x, sum x^2)`` under autograd (``parallel.dist.all_reduce_sum``). That
+composes with the two reductions above because all three are one rule:
+each rank's graph holds only its own terms of the global loss, and a
+gradient that crosses ranks is summed over them. The loss sums carry the
+gradient of this rank's terms (``total + (x - x.detach())``); the
+statistics' backward sums over the ranks the gradients that reach the
+global sums, so each rank's input gets the other ranks' terms through the
+mean and variance; and ``GradReducer`` sums the parameters' gradients,
+which are then those of the global loss. Every rank commits the same
+global statistics, so the running statistics stay bit-equal too. The eval
+step also normalizes with the batch's (the global batch's) statistics, as
+the JAX package's does, and commits nothing.
+
+``opt_state_dtype`` (optax's ``mu_dtype`` / ``accumulator_dtype``) stores
+Adam's first moment or SGD's trace in that dtype (``"bfloat16"``);
+Adam's second moment and the accumulation mean stay f32. The update copies
+the JAX step's arithmetic (:meth:`Optimizer._moment`).
 """
 
 from __future__ import annotations
@@ -50,8 +73,9 @@ import torch.distributed as dist
 
 from ..config import Config
 from ..data.generator import batch_to_device
+from ..models.layers import commit_batch_stats
 from ..models.losses import compute_losses
-from ..models.mask_rcnn import MaskRCNN, check_train_config, forward_train
+from ..models.mask_rcnn import MaskRCNN, forward_train, remat_policy
 from ..models.targets import sampling_width
 from ..parallel.dist import all_reduce_tensors_, broadcast_tensors_
 from ..parallel.mesh import shard_rows
@@ -116,8 +140,12 @@ class Optimizer:
         self.count = 0  # updates applied
         self.accum_steps = int(config.grad_accum_steps or 1)
         self.mini_step = 0  # micro-steps in the running mean
-        zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
-        self.state = {"mu": zeros(), "nu": zeros()} if self.kind == "adam" else {"trace": zeros()}
+        self.moment_dtype = moment_dtype(config)
+        zeros = lambda dtype=None: [torch.zeros_like(p, dtype=dtype) for p in self.params]  # noqa: E731
+        if self.kind == "adam":
+            self.state = {"mu": zeros(self.moment_dtype), "nu": zeros()}
+        else:
+            self.state = {"trace": zeros(self.moment_dtype)}
         if self.accum_steps > 1:
             self.state["acc"] = zeros()
 
@@ -155,9 +183,8 @@ class Optimizer:
                                 [self.params[i] for i in self.decay_idx], alpha=self.wd2)
         self.count += 1
         if self.kind == "adam":
-            mu, nu = self.state["mu"], self.state["nu"]
-            torch._foreach_mul_(mu, self.B1)
-            torch._foreach_add_(mu, grads, alpha=1.0 - self.B1)
+            nu = self.state["nu"]
+            mu = self._moment("mu", self.B1, torch._foreach_mul(grads, 1.0 - self.B1))
             torch._foreach_mul_(nu, self.B2)
             torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.B2)
             c = np.float32(self.count)
@@ -167,10 +194,31 @@ class Optimizer:
             torch._foreach_add_(denom, self.EPS)
             update = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
         else:
-            update = self.state["trace"]
-            torch._foreach_mul_(update, self.momentum)
-            torch._foreach_add_(update, grads)
+            update = self._moment("trace", self.momentum, grads)
         torch._foreach_add_(self.params, update, alpha=-self.lr)
+
+    def _moment(self, key: str, decay: float, fresh: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The new first moment ``fresh + decay * old`` (Adam's ``mu`` with
+        ``fresh = (1 - b1) g``, SGD's trace with ``fresh = g``), stored into
+        the state and returned for the update.
+
+        In f32 the state is updated in place. In a narrower dtype the JAX
+        step computes in f32 and casts only the stored moment: the Python
+        ``decay`` is weakly typed, so it takes the state's dtype
+        (bf16(0.9) = 0.8984375); its product with the stored moment is
+        exact in f32 and is not rounded to the state's dtype under ``jit``
+        (XLA keeps the excess precision; optax run eagerly rounds it); the
+        update uses that f32 sum unrounded, and the state keeps it rounded
+        to nearest even."""
+        old = self.state[key]
+        if self.moment_dtype == torch.float32:
+            torch._foreach_mul_(old, decay)
+            torch._foreach_add_(old, fresh)
+            return old
+        decay = float(torch.tensor(decay, dtype=self.moment_dtype))
+        new = torch._foreach_add(fresh, torch._foreach_mul([t.float() for t in old], decay))
+        torch._foreach_copy_(old, new)
+        return new
 
     def state_dict(self) -> Dict:
         return {
@@ -193,11 +241,21 @@ class Optimizer:
                     t.copy_(sd["state"][k][name])
 
 
+MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def moment_dtype(config: Config) -> torch.dtype:
+    """The dtype of the optimizer's first moment (``opt_state_dtype``;
+    ``""`` or None: f32)."""
+    name = getattr(config, "opt_state_dtype", "float32") or "float32"
+    if name not in MOMENT_DTYPES:
+        raise ValueError(f"opt_state_dtype {name!r} is not one of {sorted(MOMENT_DTYPES)}")
+    return MOMENT_DTYPES[name]
+
+
 def make_optimizer(config: Config, model: MaskRCNN, layers: str = "all") -> Optimizer:
     """The optimizer of ``config.optimizer`` over the parameters that
     ``layers`` trains; turns ``requires_grad`` off for the others."""
-    if getattr(config, "opt_state_dtype", "float32") not in ("float32", "", None):
-        raise NotImplementedError("opt_state_dtype other than float32 is not ported yet (ROADMAP A11)")
     train = trainable_mask(model, layers)
     named = []
     for name, p in model.named_parameters():
@@ -274,15 +332,17 @@ def rank_priorities(b: Dict[str, torch.Tensor], cfg: Config, group, priorities=N
 
 
 def _forward_losses(model, b, anchors, rpn_std, cw, priorities, generator, group=None):
+    """(losses, the batch norms' batch statistics or None)."""
     cfg = model.config
     if group is not None:
         priorities, generator = rank_priorities(b, cfg, group, priorities, generator), None
     outputs = forward_train(
         model, b["images"], b["gt_class_ids"], b["gt_boxes"], b["gt_masks"], anchors, rpn_std,
-        ext_rois=b.get("rois"), priorities=priorities, generator=generator,
+        ext_rois=b.get("rois"), priorities=priorities, generator=generator, group=group,
     )
     active = b["image_meta"][:, 12:]
-    return compute_losses(outputs, b["rpn_match"], b["rpn_deltas"], active, cfg, class_weights=cw, group=group)
+    losses = compute_losses(outputs, b["rpn_match"], b["rpn_deltas"], active, cfg, class_weights=cw, group=group)
+    return losses, outputs.batch_stats
 
 
 def _step_constants(model, anchors, class_weights):
@@ -325,8 +385,10 @@ def make_train_step(
 ) -> Callable:
     """The train step: ``step(batch, priorities=None, generator=None)`` on a
     batch of device tensors (either wire) molds it, runs
-    :func:`forward_train` and the losses, back-propagates and updates the
-    parameters in place. Returns the detached losses, on the device.
+    :func:`forward_train` and the losses, back-propagates, updates the
+    parameters in place and, under ``train_bn``, commits the batch
+    statistics to the running ones. Returns the detached losses, on the
+    device.
 
     ``class_weights`` [C] weighs the head classification loss; a ``"rois"``
     key in the batch replaces the RPN proposals (``ext_rois``).
@@ -336,18 +398,20 @@ def make_train_step(
     ``priorities`` (when given) are the global batch's, the losses are
     the global batch's. ``step.grad_reducer`` is the gradient all-reduce.
     """
-    check_train_config(model.config)
+    remat_policy(model.config, warn=True)
     anchors, rpn_std, cw = _step_constants(model, anchors, class_weights)
     reducer = GradReducer(optimizer.params, group) if group is not None else None
 
     def step(batch: Dict[str, torch.Tensor], priorities=None, generator=None):
         b = mold_batch(batch, model.config, anchors.shape[0])
         optimizer.zero_grad()
-        losses = _forward_losses(model, b, anchors, rpn_std, cw, priorities, generator, group)
+        losses, stats = _forward_losses(model, b, anchors, rpn_std, cw, priorities, generator, group)
         losses["total_loss"].backward()
         if reducer is not None:
             reducer.reduce()
         optimizer.step()
+        if stats:
+            commit_batch_stats(model, stats)
         return {k: v.detach() for k, v in losses.items()}
 
     step.grad_reducer = reducer
@@ -357,14 +421,16 @@ def make_train_step(
 def make_eval_step(model: MaskRCNN, anchors: np.ndarray,
                    class_weights: Optional[np.ndarray] = None, group=None) -> Callable:
     """Forward-only losses of a validation batch (of the global batch with
-    ``group``, as :func:`make_train_step`)."""
-    check_train_config(model.config)
+    ``group``, as :func:`make_train_step`). Under ``train_bn`` the batch
+    norms use the batch's statistics, as the JAX package's eval step does,
+    and the running ones do not move."""
+    remat_policy(model.config, warn=True)
     anchors, rpn_std, cw = _step_constants(model, anchors, class_weights)
 
     @torch.no_grad()
     def step(batch: Dict[str, torch.Tensor], priorities=None, generator=None):
         b = mold_batch(batch, model.config, anchors.shape[0])
-        return _forward_losses(model, b, anchors, rpn_std, cw, priorities, generator, group)
+        return _forward_losses(model, b, anchors, rpn_std, cw, priorities, generator, group)[0]
 
     return step
 

@@ -52,7 +52,21 @@ Phases, one line each:
 9. train parity: one f32 SGD step of ResNet-101 at batch 2, 128^2, on the
    card and on the CPU from the same weights, batch and priorities: losses
    and gradients;
-10. dist: data parallelism (ROADMAP A13) on the one card. Two ranks spawned
+10. train options: each training option ported last, at the training
+   flagship's width through ``TrainingPipeline`` on the same 16 images, 8
+   Adam steps each: ``train_bn=True`` (batch statistics, committed every
+   step), ``train_remat="backbone"`` and ``"all"`` (recomputed in the
+   backward) and ``opt_state_dtype="bfloat16"`` (the first moment in bf16):
+   step ms, img/s, peak memory, first and last loss, launches (1 NMS, 2
+   ROIAlign forward, 2 backward, 1 crop a step under every option). Held
+   per step, not along a trajectory: one f32 ``train_bn`` SGD step of
+   ResNet-101 (batch 2, 128^2) card vs CPU from the same state (losses,
+   committed running statistics; the gradients against the same step in
+   f64 on the CPU, within a multiple of the CPU's f32 distance from it),
+   and each remat step against
+   the same step without remat on the card; then the four kernels against
+   their plain versions on the first ``train_bn`` step's inputs;
+11. dist: data parallelism (ROADMAP A13) on the one card. Two ranks spawned
    (``torch.multiprocessing``) over Gloo, both on ``cuda:0``: 3 f32 SGD
    steps of the training flagship's widths (global batch 8, 4 per rank,
    2000 given ROIs, 512 ROIs, 300 GT, given global priorities). Held: each
@@ -63,7 +77,14 @@ Phases, one line each:
    within 1e-4, the parameters after step 3 within those bounds); the
    ranks' parameters bit-equal. Printed beside it, not held: two
    one-process runs against each other, and the updates, which are below
-   the f32 resolution of the parameters here. Then 12 bf16 Adam steps
+   the f32 resolution of the parameters here. Then ``train_bn`` with the
+   global batch's statistics (each batch norm's sums all-reduced under
+   autograd; the batches' mean pixel): 2 f32 SGD steps, each against one
+   process's step from the same state (losses, gradients, trace, committed
+   statistics), the batch norm layer alone against one process (output,
+   input and parameter gradients), the ranks' parameters and statistics
+   bit-equal, and the step's time with the
+   statistics' 2 x 110 all-reduces timed one by one. Then 12 bf16 Adam steps
    through the RPN path: each rank's median step ms, host ms to make its
    batch and the gradient all-reduce's ms and MB (Gloo takes the CUDA
    buckets) beside one process at batch 4 (not a scaling figure: the ranks
@@ -80,7 +101,7 @@ Phases, one line each:
    mask-target crop), its first timed step (bf16: the RPN's NMS as well)
    and replica 0's detect step (f32, one 512^2 tile: both NMS, ROIAlign at
    pool 7 and 14);
-11. serving: the int8 serving graph (``quant_mode="int8"``, the CLI's
+12. serving: the int8 serving graph (``quant_mode="int8"``, the CLI's
    ``--serving`` preset: 3000 pre-NMS / 512 post-NMS) at the serving
    flagship's width (ResNet-101, FPN 256, batch 8, bf16), on the 16 tiles
    of the seeded 2048^2 mosaic through ``dispatch_tiles``/``collect``, two
@@ -93,11 +114,11 @@ Phases, one line each:
    weights and tiles (CUDA events), its device time by kernel (profiler);
    peak memory; the int8 pyramid's relative L2 error against the folded
    f32 graph's (bound 0.25, as ``tests/test_quant.py``);
-12. serving parity: one quantized tree, calibrated on the CPU, carried to
+13. serving parity: one quantized tree, calibrated on the CPU, carried to
    the card (f32, 256^2, batch 2): the int8 pyramid on the card equal to the
    CPU's bit for bit, and ``SFinder.run_tiled`` with pinned heads over a
    seeded 512^2 mosaic (4 tiles) giving the same catalog on both;
-13. export: the serving export (``inference/export.py``) of the serving
+14. export: the serving export (``inference/export.py``) of the serving
    flagship's bf16 graph and of its int8 graph (calibrated on the first
    batch of the 16 tiles, as ``serving:`` does): export, save and load
    seconds, the artifact's MB and its ``caesar::`` nodes; each artifact
@@ -108,7 +129,7 @@ Phases, one line each:
    bit against ``Detector._step``'s on the same batch, or within 1 bf16
    ulp for the bf16 graph) and detects on the 16 tiles
    (``ServingDetector.detect`` img/s beside ``Detector.detect``'s);
-14. cli: the system's own entry point, ``caesar_mrcnn_tpu_torch.cli.run.main``,
+15. cli: the system's own entry point, ``caesar_mrcnn_tpu_torch.cli.run.main``,
    in-process on the card (its default ``--device cuda``), at the CLI's
    default widths (ResNet-101, bf16, 6000 pre-NMS, 2000/1000 post-NMS, 512
    ROIs, 300 GT): ``train`` (10 Adam steps at 256^2, batch 8, on the 16
@@ -119,7 +140,7 @@ Phases, one line each:
    ``detect --serving`` and ``test --serving`` (the int8 graph): each
    mode's wall time and launches; the train step's time and first and last
    losses;
-15. classify: the classifier CLI, ``caesar_mrcnn_tpu_torch.cli.sclassifier.main``,
+16. classify: the classifier CLI, ``caesar_mrcnn_tpu_torch.cli.sclassifier.main``,
    in-process on the card, on a seeded 1024^2 synthetic sky
    (``data/synthetic.py``: 4 x 4 samples of 256^2) and its Caesar ascii
    catalog, with 256^2 cutouts at the serving flagship's width (ResNet-101,
@@ -136,8 +157,9 @@ Phases, one line each:
    the two catalogs equal row for row (scores within 1e-5).
 
 Then the card's name and power limit, one JSON line with the kernels'
-record (launches on the main paths: detect, catalog, train, dist (its
-two ranks' and the two replicas'), serving, export, cli and classify; error,
+record (launches on the main paths: detect, catalog, train, train
+options, dist (its two ranks' and the two replicas'), serving, export, cli
+and classify; error,
 kernel, plain and bound times summed over the cases; ``library_ms`` null,
 with the reason beside it, but for the int8 convolution: ``torch._int_mm``
 at the sites where one matrix product computes its int32 sums), and as the
@@ -1537,11 +1559,29 @@ def check_train_step_boxes(captured: dict, recs: dict, card_name: str) -> None:
 GRAD_BOUNDS = {"backbone": 1e-2, "FPN and heads": 1e-3}
 
 
-def worst_rel(got: dict, ref: dict) -> dict:
+def pre_bn_biases(model) -> set:
+    """The biases of the convolutions that a trainable batch norm follows:
+    under batch statistics they cancel out of the output, so their gradient
+    is f32 rounding noise around 0, which no relative error can hold."""
+    from caesar_mrcnn_tpu_torch.models.layers import BatchNorm
+
+    out = set()
+    for name, module in model.named_modules():
+        if isinstance(module, BatchNorm):
+            parent, _, leaf = name.rpartition(".")
+            conv = {"bn_conv1": "conv1", "shortcut_bn": "shortcut"}.get(leaf, leaf.replace("bn", "conv"))
+            out.add(f"{parent}.{conv}.bias")
+    return out
+
+
+def worst_rel(got: dict, ref: dict, skip=()) -> dict:
     """The worst relative L2 error ``|got - ref| / |ref|`` of the tensors
-    of ``ref`` by group of parameters: (error, name) per group."""
+    of ``ref`` (but those in ``skip``) by group of parameters: (error,
+    name) per group."""
     worst = {group: (0.0, "") for group in GRAD_BOUNDS}
     for k, r in ref.items():
+        if k in skip:
+            continue
         r = r.double()
         rel = float((got[k].double().to(r.device) - r).norm() / r.norm().clamp_min(1e-30))
         group = "backbone" if k.startswith("backbone.") else "FPN and heads"
@@ -1549,12 +1589,12 @@ def worst_rel(got: dict, ref: dict) -> dict:
     return worst
 
 
-def beyond(worst: dict) -> bool:
-    return any(worst[group][0] > bound for group, bound in GRAD_BOUNDS.items())
+def beyond(worst: dict, bounds: dict = GRAD_BOUNDS) -> bool:
+    return any(worst[group][0] > bound for group, bound in bounds.items())
 
 
-def show(worst: dict, held: bool = True) -> str:
-    return ", ".join(f"{g} {rel:.3g} ({k}" + (f"; bound {GRAD_BOUNDS[g]:g})" if held else ")")
+def show(worst: dict, held: bool = True, bounds: dict = GRAD_BOUNDS) -> str:
+    return ", ".join(f"{g} {rel:.3g} ({k}" + (f"; bound {bounds[g]:g})" if held else ")")
                      for g, (rel, k) in worst.items())
 
 
@@ -1619,10 +1659,252 @@ def check_train_parity(ds, card_name: str) -> None:
         raise AssertionError(f"train parity beyond its bounds: losses {gl} vs {cl}; gradients {worst}")
 
 
+# ----------------------------------------------------------- train options
+
+OPTION_STEPS = 8  # steps of each option (median of steps 3-8)
+TRAIN_OPTIONS = (("train_bn", dict(train_bn=True)), ("remat backbone", dict(train_remat="backbone")),
+                 ("remat all", dict(train_remat="all")), ("bf16 moment", dict(opt_state_dtype="bfloat16")))
+# train_bn's gradients, card against CPU from the same state. f32 rounding
+# grows through every batch norm's batch statistics (at batch 2, 128^2,
+# res5's see 32 values a channel), so the step is also evaluated in f64 on
+# the CPU, the witness, and the card's f32 gradients are held within
+# BN_WITNESS_FACTOR times the CPU's own f32 distance from it, group by group
+# (the worst relative L2 error of a tensor, not of the biases a batch norm
+# follows). Measured on an H100 and its host's CPU: the CPU's f32 0.0547
+# from f64 in the backbone and 0.0108 in the FPN and heads; the card's
+# 0.0348 and 0.0327 (fpn.fpn_p5.weight, 3.0x the CPU's: cuDNN's convolution
+# algorithms, as the card's step without cuDNN, 0.0423 and 0.00645, shows);
+# with the ROIAlign backward kernel dropping the last row of each box's
+# footprint, 0.119 and 0.0687. A factor of 3 failed the sound card by 1%.
+BN_WITNESS_FACTOR = 4.0
+# train_bn under data parallelism, two ranks against one process on the
+# card from the same state (relative L2 of the gradients and the trace).
+# Measured on an H100 (four runs): at most 0.0527 in the backbone and
+# 0.0418 in the FPN and heads; with the backward's all-reduce of the
+# statistics' gradients dropped, 2.09-2.16 and 2.38-2.69 (batch norms'
+# biases)
+DIST_BN_GRAD_BOUNDS = {"backbone": 0.2, "FPN and heads": 0.1}
+# the batch norm layer alone, two ranks against one process on the card:
+# output, input gradient, scale and bias gradients (max-abs relative).
+# Measured on an H100: at most 9.0e-6 (the scale's); the input gradient
+# 4.3e-7, and 0.123 with the backward's all-reduce dropped
+BN_LAYER_BOUND = 1e-3
+# a remat step against the step without remat on the card (cuDNN and the
+# backward's atomics are not deterministic: measured 1.7e-06 / 1.1e-07)
+REMAT_GRAD_BOUNDS = {"backbone": 1e-3, "FPN and heads": 1e-4}
+BN_STATS_BOUND = 1e-3  # committed running statistics, card vs CPU, of each tensor's max-abs
+
+
+def _option_model(cfg, device="cuda", affine: bool = False, settle: bool = True):
+    """The flagship's seeded random weights (flax's scheme; nonzero biases
+    and batch norms with ``affine``; settled with ``settle``) on ``device``."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch import weights as W
+    from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+
+    model = MaskRCNN(cfg)
+    W.init_weights(model, torch.Generator().manual_seed(SEED))
+    if affine:
+        randomize_affine(model)
+    if settle:
+        settle_random_weights(model)
+    return model.to(device)
+
+
+def _run_option(ds, cfg, capture=None) -> dict:
+    """OPTION_STEPS Adam steps of ``cfg`` through ``TrainingPipeline``: step
+    ms (CUDA events), peak memory, the losses, the launches; ``capture``
+    (:class:`KernelInputs`) keeps the first step's kernel inputs."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch.data.generator import TrainingPipeline
+    from caesar_mrcnn_tpu_torch.train import trainer as T
+
+    pipe = TrainingPipeline(ds, cfg, seed=SEED, augmentation=True, cache_bytes=1 << 30)
+    batches = pipe.batches()
+    model = _option_model(cfg)
+    opt = T.make_optimizer(cfg, model, "all")
+    step = T.make_train_step(model, opt, pipe.anchors_normalized())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # earlier phases' tensors and this model
+    _zero_launches()
+    events, losses = [], []
+    for k in range(OPTION_STEPS):
+        batch = T.batch_to_device(next(batches), "cuda")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if capture is not None:
+            capture.on = k == 0
+        start.record()
+        losses.append(step(batch, generator=gen))
+        end.record()
+        if capture is not None:
+            capture.on = False
+        events.append((start, end))
+    torch.cuda.synchronize()
+    out = {"launches": _launches(), "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "resident_gib": resident / 2 ** 30,
+           "step_ms": statistics.median(s.elapsed_time(e) for s, e in events[2:]),
+           "first": float(losses[0]["total_loss"]), "last": float(losses[-1]["total_loss"]),
+           "finite": all(bool(torch.isfinite(v)) for l in losses for v in l.values())}
+    if cfg.opt_state_dtype == "bfloat16":
+        out["moment"] = str(opt.state["mu"][0].dtype)
+    if cfg.train_bn:  # the running mean starts at 0 (flax's init)
+        out["stats_moved"] = float(model.backbone.bn_conv1.mean.abs().max())
+    return out
+
+
+def _one_step(model, cfg, batch, priorities, device) -> tuple:
+    """One f32 SGD step of ``model`` on ``device``: (losses, gradients by
+    name, the running statistics after it)."""
+    from caesar_mrcnn_tpu_torch.train import trainer as T
+    from caesar_mrcnn_tpu_torch.utils.anchors import get_anchors
+
+    step = T.make_train_step(model, T.make_optimizer(cfg, model, "all"), get_anchors(cfg))
+    losses = step(T.batch_to_device(batch, device), priorities=tuple(p.to(device) for p in priorities))
+    grads = {k: v.grad.detach().cpu().double() for k, v in model.named_parameters()}
+    stats = {k: v.detach().cpu().double() for k, v in model.state_dict().items() if k.endswith((".mean", ".var"))}
+    return {k: float(v) for k, v in losses.items()}, grads, stats
+
+
+def check_train_options_parity(ds, card_name: str) -> None:
+    """``train_bn``: one f32 SGD step (ResNet-101, batch 2, 128^2, given
+    ROIs and priorities, TF32 off, the batch's mean pixel) on the card and
+    on the CPU from the same state, and the same step in f64 on the CPU
+    (the witness): losses within 1e-4 relative, card against CPU; the
+    card's gradients no further from the witness than BN_WITNESS_FACTOR
+    times the CPU's f32 gradients are, group by group (relative L2; not the
+    biases a batch norm follows, :func:`pre_bn_biases`); the committed
+    running statistics within BN_STATS_BOUND of each tensor's max-abs, card
+    against CPU. Remat: the same step (frozen batch norm) with
+    ``train_remat`` "backbone" and "all" against the step without it, all
+    three on the card from the same state: losses within 1e-6, gradients
+    within REMAT_GRAD_BOUNDS."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch.data.generator import TrainingPipeline
+    from caesar_mrcnn_tpu_torch.models.targets import sampling_width
+
+    base = dict(image_min_dim=128, image_max_dim=128, images_per_device=2, compute_dtype="float32",
+                optimizer="sgd", use_rpn_rois=False)
+    batch = next(TrainingPipeline(ds, train_config(**base), seed=SEED).batches())
+    mean = float(np.asarray(batch["images"], np.float64).mean())
+    cfg = train_config(**base, train_bn=True, mean_pixel=(mean,) * 3)
+    width = sampling_width(batch["rois"].shape[1], cfg)
+    prio = tuple(torch.rand((2, width), generator=torch.Generator().manual_seed(SEED)) for _ in range(2))
+    state = _option_model(cfg, "cpu", affine=True, settle=False).state_dict()
+    results = []
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        model = _option_model(cfg, "cpu", affine=True, settle=False)
+        model.load_state_dict(state)
+        if dtype == torch.float64:  # the witness: parameters and activations in f64
+            model.double()
+            model.dtype = torch.float64
+        results.append(_one_step(model.to(device), cfg, batch, prio, device))
+    (gl, gg, gs), (cl, cg, cs), (_, wg, _) = results
+    noise = pre_bn_biases(model)
+    torch.backends.cudnn.enabled = False  # not held: the card's step with PyTorch's own convolutions
+    try:
+        model = _option_model(cfg, "cpu", affine=True, settle=False)
+        model.load_state_dict(state)
+        native_gap = worst_rel(_one_step(model.to("cuda"), cfg, batch, prio, "cuda")[1], wg, noise)
+    finally:
+        torch.backends.cudnn.enabled = True
+    loss_rel = max_rel(gl, cl)
+    worst = worst_rel(gg, cg, noise)
+    card_gap, cpu_gap = worst_rel(gg, wg, noise), worst_rel(cg, wg, noise)
+    bounds = {g: BN_WITNESS_FACTOR * cpu_gap[g][0] for g in cpu_gap}
+    stats_rel = max(float((gs[k] - cs[k]).abs().max() / cs[k].abs().max().clamp_min(1e-30)) for k in cs)
+    moved = max(float((cs[k] - state[k].double()).abs().max()) for k in cs)
+    print(f"train options parity: train_bn, one f32 SGD step, ResNet-101 batch 2 128^2 (mean pixel {mean:.2f}): "
+          f"losses card vs CPU max rel diff {loss_rel:.3g} (bound 1e-4); gradients' worst relative L2 error "
+          f"against the CPU's f64 step: card {show(card_gap, bounds=bounds)}; CPU f32 {show(cpu_gap, False)} "
+          f"(bounds {BN_WITNESS_FACTOR:g} x the CPU's); not held: the card without cuDNN "
+          f"{show(native_gap, False)}, the card against the CPU {show(worst, False)}; "
+          f"committed running statistics {stats_rel:.3g} of their scale (bound {BN_STATS_BOUND:g}; they moved by "
+          f"up to {moved:.3g}) [{card_name}]")
+    failures = []
+    if loss_rel > 1e-4 or beyond(card_gap, bounds) or stats_rel > BN_STATS_BOUND or moved == 0:
+        failures.append(f"train_bn card vs CPU beyond its bounds: losses {gl} vs {cl}; gradients against f64 "
+                        f"{card_gap}, the CPU's {cpu_gap}; statistics {stats_rel}")
+
+    cfg = train_config(**base, mean_pixel=(mean,) * 3)
+    state = _option_model(cfg, "cpu", affine=True).state_dict()
+    runs = {}
+    for remat in ("none", "backbone", "all"):
+        c = cfg.replace(train_remat=remat)
+        model = _option_model(c, "cpu", affine=True)
+        model.load_state_dict(state)
+        runs[remat] = _one_step(model.to("cuda"), c, batch, prio, "cuda")
+    for remat in ("backbone", "all"):
+        loss_rel = max_rel(runs[remat][0], runs["none"][0])
+        worst = worst_rel(runs[remat][1], runs["none"][1])
+        print(f"train options parity: train_remat={remat!r} against no remat, one f32 SGD step on the card from "
+              f"the same state: losses max rel diff {loss_rel:.3g} (bound 1e-6); gradients' worst relative L2 "
+              f"error: {show(worst, bounds=REMAT_GRAD_BOUNDS)} [{card_name}]")
+        if loss_rel > 1e-6 or beyond(worst, REMAT_GRAD_BOUNDS):
+            failures.append(f"remat {remat} against no remat beyond its bounds: {loss_rel}, {worst}")
+    if failures:
+        raise AssertionError("train options: " + "\ntrain options: ".join(failures))
+
+
+def check_train_options(ds, recs: dict, card_name: str) -> dict:
+    """Each training option of TRAIN_OPTIONS at the training flagship's
+    width through ``TrainingPipeline`` (OPTION_STEPS Adam steps): step ms,
+    img/s, peak memory, first and last loss, launches (1 NMS, 2 ROIAlign
+    forward, 2 backward, 1 crop a step, under remat too); then the
+    parities (:func:`check_train_options_parity`) and the four kernels
+    against their plain versions on the inputs of the first ``train_bn``
+    step. Returns the options' launches, summed."""
+    import contextlib
+
+    import torch
+
+    t0 = time.perf_counter()
+    total = {k: 0 for k in _dist_counters()}
+    expected = {"nms": OPTION_STEPS, "roi_align": 2 * OPTION_STEPS, "roi_align_backward": 2 * OPTION_STEPS,
+                "crop_and_resize": OPTION_STEPS}
+    captured = KernelInputs()
+    rows, failures = {}, []
+    for name, option in TRAIN_OPTIONS:
+        cfg = train_config(**option)
+        with captured if name == "train_bn" else contextlib.nullcontext():
+            r = _run_option(ds, cfg, captured if name == "train_bn" else None)
+        rows[name] = r
+        total = {k: total[k] + r["launches"][k] for k in total}
+        extra = (f"; moment {r['moment']}" if "moment" in r else "") + \
+            (f"; bn_conv1 running mean moved by {r['stats_moved']:.4g}" if "stats_moved" in r else "")
+        print(f"train options: {name}, {OPTION_STEPS} Adam steps of ResNet-101 256^2 batch 8 bf16: step "
+              f"{r['step_ms']:.2f} ms (median of steps 3-{OPTION_STEPS}, CUDA events), "
+              f"{cfg.batch_size * 1000.0 / r['step_ms']:.2f} img/s; peak device memory {r['peak_gib']:.2f} GiB "
+              f"({r['resident_gib']:.2f} GiB resident before the first step: the model and earlier phases' "
+              f"tensors); "
+              f"total_loss first {r['first']:.4f}, last {r['last']:.4f}, all finite {r['finite']}; launches "
+              f"{r['launches']}{extra} [{card_name}]")
+        if r["launches"] != expected:
+            failures.append(f"{name}: launches {r['launches']}, expected {expected} (1, 2, 2, 1 a step)")
+        if not r["finite"] or r.get("moment", "torch.bfloat16") != "torch.bfloat16" or r.get("stats_moved", 1) == 0:
+            failures.append(f"{name}: {r}")
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("train options: " + "\ntrain options: ".join(failures))
+    check_train_options_parity(ds, card_name)
+    torch.cuda.empty_cache()
+    check_captured_kernels({"train_bn step": captured.inputs()}, {"train_bn step": (1, 2, 1)}, recs, card_name,
+                           "train options")
+    print(f"train options: phase {time.perf_counter() - t0:.2f} s; launches {total} [{card_name}]")
+    return total
+
+
 # --------------------------------------------------------------------- dist
 
 DIST_STEPS = 3  # f32 SGD steps of the data-parallel parity
 DIST_TIMED = 12  # bf16 Adam steps of the timing run (median of the last 10)
+BN_STEPS = 2  # f32 SGD train_bn steps of the data-parallel parity (global batch statistics)
+BN_TIMED = 3  # f32 SGD train_bn steps timed plain, then as many with the statistics' all-reduces timed
 
 
 def _dist_counters():
@@ -1650,7 +1932,9 @@ def _restore_launches(counts: dict) -> None:
 def _train_parity_inputs(ds, job: str) -> None:
     """The f32 parity's inputs, written to ``job``: the flagship's settled
     random weights (nonzero biases and batch norms), three global batches of
-    8 with given ROIs, and their global sampling priorities."""
+    8 with given ROIs, their global sampling priorities, and the mean pixel
+    of the ``train_bn`` steps' batches (flax's fast variance, ``E[x^2] -
+    E[x]^2`` in f32, cancels where the stem's input keeps a large mean)."""
     import torch
 
     from caesar_mrcnn_tpu_torch import weights as W
@@ -1668,7 +1952,9 @@ def _train_parity_inputs(ds, job: str) -> None:
     W.init_weights(model, torch.Generator().manual_seed(SEED))
     randomize_affine(model)
     settle_random_weights(model)
-    torch.save({"state": model.state_dict(), "batches": batches, "priorities": priorities}, job)
+    mean = float(np.mean([np.asarray(b["images"], np.float64).mean() for b in batches[:BN_STEPS]]))
+    torch.save({"state": model.state_dict(), "batches": batches, "priorities": priorities, "mean_pixel": mean},
+               job)
 
 
 def _dist_parity_config(**kw):
@@ -1689,7 +1975,9 @@ def _sgd_steps(model, cfg, batches, priorities, device, group=None, rank=0, worl
     and the second list returned holds, per step, the losses' largest
     relative difference and the worst relative L2 errors of the gradients
     and of the optimizer's trace (the update before the learning rate: the
-    clipped gradient, the L2 term and the momentum). ``capture``
+    clipped gradient, the L2 term and the momentum), not of the biases a
+    trainable batch norm follows (:func:`pre_bn_biases`), and the committed
+    running statistics' largest difference. ``capture``
     (:class:`KernelInputs`) keeps the first step's kernel inputs."""
     from caesar_mrcnn_tpu_torch.parallel.mesh import shard_batch
     from caesar_mrcnn_tpu_torch.train import trainer as T
@@ -1701,6 +1989,7 @@ def _sgd_steps(model, cfg, batches, priorities, device, group=None, rank=0, worl
     anchors = get_anchors(cfg)
     opt = T.make_optimizer(cfg, model, "all")
     step = T.make_train_step(model, opt, anchors, group=group)
+    noise = pre_bn_biases(model)  # empty under frozen batch norm
     if reference is not None:
         ref_opt = T.make_optimizer(cfg, reference, "all")
         ref_step = T.make_train_step(reference, ref_opt, anchors)
@@ -1724,11 +2013,143 @@ def _sgd_steps(model, cfg, batches, priorities, device, group=None, rank=0, worl
         if reference is not None:
             same_state.append({
                 "losses": max_rel(losses[-1], {n: float(v) for n, v in ref_losses.items()}),
-                "gradients": worst_rel(grads(opt), grads(ref_opt)),
+                "gradients": worst_rel(grads(opt), grads(ref_opt), noise),
                 "trace": worst_rel(dict(zip(opt.names, opt.state["trace"])),
-                                   dict(zip(ref_opt.names, ref_opt.state["trace"]))),
+                                   dict(zip(ref_opt.names, ref_opt.state["trace"])), noise),
+                "stats": stats_rel(model, reference),
             })
     return losses, same_state
+
+
+def stats_rel(model, reference) -> float:
+    """The largest difference of the two models' running statistics, of
+    each tensor's max-abs."""
+    mine, theirs = model.state_dict(), reference.state_dict()
+    return max((float((mine[k].double() - theirs[k].double()).abs().max() / theirs[k].abs().max().clamp_min(1e-30))
+                for k in theirs if k.endswith((".mean", ".var"))), default=0.0)
+
+
+def _bn_layer_parity(group, rank: int, world: int, device) -> dict:
+    """The trainable batch norm alone with the global batch's statistics
+    (its ``(sum x, sum x^2)`` through ``parallel.dist.all_reduce_sum``)
+    against one process on the global batch, on the card, at the stem
+    batch norm's shape in the dist phase ([8, 64, 64, 64] f32, 4 images a
+    rank; an input mean of 3) under the loss ``sum(y * w)`` with ``w`` of
+    mean 1. Every rank takes part; rank 0 returns the largest difference,
+    of the reference's max-abs, of the output, of the input's gradient
+    (the ranks' rows gathered) and of the scale's and bias's gradients
+    (summed over the ranks). The input gradient reaches the other ranks'
+    loss terms only through the backward's all-reduce: ``w``'s mean makes
+    those terms a large part of it."""
+    import torch
+    import torch.distributed as dist
+
+    from caesar_mrcnn_tpu_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(SEED)
+    n, c, h = 8, 64, 64
+    x = torch.randn(n, c, h, h, generator=gen) * 2.0 + 3.0
+    w = torch.randn(n, c, h, h, generator=gen) + 1.0
+    scale, bias = torch.rand(c, generator=gen) + 0.5, torch.rand(c, generator=gen) - 0.5
+    rows = slice(rank * n // world, (rank + 1) * n // world)
+
+    def run(xs, ws, grp):
+        holder = torch.nn.Module()
+        holder.bn = L.BatchNorm(c).to(device)
+        with torch.no_grad():
+            holder.bn.scale.copy_(scale)
+            holder.bn.bias.copy_(bias)
+        xs = xs.to(device).requires_grad_(True)
+        with L.batch_statistics(holder, grp):
+            y = holder.bn(xs)
+        (y * ws.to(device)).sum().backward()
+        return [y.detach(), xs.grad, holder.bn.scale.grad, holder.bn.bias.grad]
+
+    mine = run(x[rows], w[rows], group)
+    full = []
+    for t in mine[:2]:  # the ranks' rows, gathered by a sum
+        whole = torch.zeros((n,) + t.shape[1:], dtype=t.dtype, device=device)
+        whole[rows] = t
+        dist.all_reduce(whole, group=group)
+        full.append(whole)
+    for t in mine[2:]:
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        full.append(t)
+    if rank != 0:
+        return {}
+    ref = run(x, w, None)
+    return {name: float((a - b).abs().max() / b.abs().max()) for name, a, b in
+            zip(("output", "input gradient", "scale gradient", "bias gradient"), full, ref)}
+
+
+class BNReduceTimer:
+    """While installed, each all-reduce of the batch norms' global
+    statistics (``parallel.dist.all_reduce_sum``: the forward's sums and
+    the backward's gradients) is timed on the host clock with the card
+    synchronized around it; ``ms`` and ``count`` accumulate."""
+
+    def __enter__(self):
+        import torch
+
+        from caesar_mrcnn_tpu_torch.models import layers
+        from caesar_mrcnn_tpu_torch.parallel import dist as D
+
+        self.ms, self.count = 0.0, 0
+        self._saved = (layers.all_reduce_sum, D._AllReduceSum.backward)
+
+        def timed(fn):
+            def run(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                self.ms += 1e3 * (time.perf_counter() - t)
+                self.count += 1
+                return out
+            return run
+
+        layers.all_reduce_sum = timed(self._saved[0])
+        D._AllReduceSum.backward = staticmethod(timed(self._saved[1]))
+        return self
+
+    def __exit__(self, *exc):
+        from caesar_mrcnn_tpu_torch.models import layers
+        from caesar_mrcnn_tpu_torch.parallel import dist as D
+
+        layers.all_reduce_sum, D._AllReduceSum.backward = self._saved[0], staticmethod(self._saved[1])
+
+
+def _bn_timing(model, cfg, job: dict, device, group, rank: int, world: int) -> dict:
+    """BN_TIMED f32 SGD ``train_bn`` steps of this rank (host clock,
+    synchronized), then BN_TIMED more with the statistics' all-reduces
+    timed (:class:`BNReduceTimer`): the median step ms of each, and the
+    all-reduces' count and ms per step."""
+    import contextlib
+
+    import torch
+
+    from caesar_mrcnn_tpu_torch.parallel.mesh import shard_batch
+    from caesar_mrcnn_tpu_torch.train import trainer as T
+    from caesar_mrcnn_tpu_torch.utils.anchors import get_anchors
+
+    step = T.make_train_step(model, T.make_optimizer(cfg, model, "all"), get_anchors(cfg), group=group)
+    plain, timed, reduce_ms, counts = [], [], [], []
+    for k in range(2 * BN_TIMED):
+        i = k % len(job["batches"])
+        batch = T.batch_to_device(shard_batch(job["batches"][i], world, rank), device)
+        prio = tuple(p.to(device) for p in job["priorities"][i])
+        with BNReduceTimer() if k >= BN_TIMED else contextlib.nullcontext() as timer:
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            step(batch, priorities=prio)
+            torch.cuda.synchronize(device)
+            (timed if timer else plain).append(1e3 * (time.perf_counter() - t))
+        if timer:
+            reduce_ms.append(timer.ms)
+            counts.append(timer.count)
+    return {"step_ms": statistics.median(plain), "instrumented_step_ms": statistics.median(timed),
+            "reduce_ms": statistics.median(reduce_ms), "reduces": counts}
 
 
 def _timed_train(ds_paths, cfg, group, rank, world, device, capture=None) -> dict:
@@ -1851,7 +2272,7 @@ def dist_worker(rank: int, world: int, port: int, tmp: str, ds_paths: list) -> N
     model.load_state_dict(job["state"])
     model.to(device)
     reference = MaskRCNN(cfg).to(device) if rank == 0 else None
-    parity, timed = KernelInputs(), KernelInputs()
+    parity, timed, bn = KernelInputs(), KernelInputs(), KernelInputs()
     with parity:
         out["parity_losses"], out["same_state"] = _sgd_steps(
             model, cfg, job["batches"], job["priorities"], device, group, rank, world, reference,
@@ -1862,15 +2283,35 @@ def dist_worker(rank: int, world: int, port: int, tmp: str, ds_paths: list) -> N
     out["unequal_to_rank0"] = int(sum(int((a != b).sum()) for a, b in zip(params, theirs)))
     if rank == 0:
         torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(tmp, "dp_params.pt"))
-    del model, reference, params, theirs, job
+    del model, reference, params, theirs
+
+    # train_bn: the global batch's statistics; each step against one process's from the same state
+    bn_cfg = _dist_parity_config(train_bn=True, mean_pixel=(job["mean_pixel"],) * 3)
+    model = MaskRCNN(bn_cfg)
+    model.load_state_dict(job["state"])
+    model.to(device)
+    reference = MaskRCNN(bn_cfg).to(device) if rank == 0 else None
+    with bn:
+        out["bn_losses"], out["bn_same_state"] = _sgd_steps(
+            model, bn_cfg, job["batches"][:BN_STEPS], job["priorities"][:BN_STEPS], device, group, rank, world,
+            reference, bn if rank == 0 else None)
+    state = [t.detach() for t in model.state_dict().values()]
+    theirs = [t.clone() for t in state]
+    D.broadcast_tensors_(theirs, 0, group)
+    out["bn_unequal_to_rank0"] = int(sum(int((a != b).sum()) for a, b in zip(state, theirs)))
+    del reference, state, theirs
+    out["bn_layer"] = _bn_layer_parity(group, rank, world, device)
+    out["bn_timing"] = _bn_timing(model, bn_cfg, job, device, group, rank, world)
+    del model, job
     torch.cuda.empty_cache()
 
     with timed:
         out["timed"] = _timed_train(ds_paths, train_config(images_per_device=4, num_devices=2), group, rank, world,
                                     device, timed if rank == 0 else None)
     if rank == 0:
-        torch.save({"parity": parity.inputs(), "timed": timed.inputs()}, os.path.join(tmp, "kernel_inputs.pt"))
-    del parity, timed
+        torch.save({"parity": parity.inputs(), "timed": timed.inputs(), "train_bn": bn.inputs()},
+                   os.path.join(tmp, "kernel_inputs.pt"))
+    del parity, timed, bn
     torch.cuda.empty_cache()
     out["catalog_s"] = _dist_catalogs(tmp, device, "two")
     out["launches"] = _launches()
@@ -1966,6 +2407,35 @@ def check_dist(ds, ds_paths: list, recs: dict, card_name: str) -> dict:
         failures.append(f"data-parallel train parity beyond its bounds: losses {loss_rel}, parameters {params}, "
                         f"ranks equal {ranks_equal}, steps from the same state {same_state}")
 
+    bn_same = ranks[0]["bn_same_state"]
+    bn_equal = ranks[0]["bn_losses"] == ranks[1]["bn_losses"] and ranks[1]["bn_unequal_to_rank0"] == 0
+    print(f"dist: train_bn, global batch statistics (each batch norm's (sum x, sum x^2) all-reduced, its backward "
+          f"too), 2 ranks over {ranks[0]['backend']} on cuda:0, {BN_STEPS} f32 SGD steps, the same widths and "
+          f"batches [{card_name}]")
+    for k, st in enumerate(bn_same):
+        print(f"dist: train_bn step {k + 1} against one process's step on the global batch from the same state: "
+              f"losses max rel diff {st['losses']:.3g} (bound 1e-4); gradients' worst relative L2 error: "
+              f"{show(st['gradients'], bounds=DIST_BN_GRAD_BOUNDS)}; of the optimizer's trace: "
+              f"{show(st['trace'], bounds=DIST_BN_GRAD_BOUNDS)}; committed running statistics {st['stats']:.3g} of "
+              f"their scale (bound {BN_STATS_BOUND:g})")
+    bn_layer = ranks[0]["bn_layer"]
+    print(f"dist: train_bn, the batch norm layer alone at the stem's shape, 2 ranks (4 images each) against one "
+          f"process (8), largest difference of the reference's max-abs: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in bn_layer.items()) + f" (bound {BN_LAYER_BOUND:g})")
+    bn_t = [r["bn_timing"] for r in ranks]
+    print(f"dist: train_bn ranks' parameters and statistics bit-equal: {bn_equal}; step ms per rank "
+          f"{[round(t['step_ms'], 2) for t in bn_t]} (median of {BN_TIMED}, host clock, synchronized); with the "
+          f"statistics' all-reduces timed one by one: {bn_t[0]['reduces']} all-reduces a step (forward and "
+          f"backward), {[round(t['reduce_ms'], 2) for t in bn_t]} ms a step of them per rank, step "
+          f"{[round(t['instrumented_step_ms'], 2) for t in bn_t]} ms [{card_name}]")
+    if (not bn_equal or len(bn_same) != BN_STEPS or len(bn_layer) != 4
+            or any(v > BN_LAYER_BOUND for v in bn_layer.values())
+            or any(st["losses"] > 1e-4 or beyond(st["gradients"], DIST_BN_GRAD_BOUNDS)
+                   or beyond(st["trace"], DIST_BN_GRAD_BOUNDS) or st["stats"] > BN_STATS_BOUND for st in bn_same)
+            or any(c != 2 * 110 for c in bn_t[0]["reduces"])):
+        failures.append(f"data-parallel train_bn beyond its bounds: ranks equal {bn_equal}, the layer {bn_layer}, "
+                        f"steps from the same state {bn_same}, all-reduces a step {bn_t[0]['reduces']} (expected 2 x 110)")
+
     timed = [r["timed"] for r in ranks]
     print(f"dist: data-parallel timing, {DIST_TIMED} bf16 Adam steps of the training flagship through the RPN "
           f"path (2000 post-NMS proposals), 4 images per rank: step ms per rank "
@@ -2008,9 +2478,11 @@ def check_dist(ds, ds_paths: list, recs: dict, card_name: str) -> dict:
         failures.append("the two-process f32 catalog differs:\n" + "\n".join(diffs[:20]))
 
     launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
-    # per rank: the parity steps (given ROIs: no NMS), the timed steps, one batch of each catalog
-    per_rank = {"nms": DIST_TIMED + 4, "roi_align": 2 * (DIST_STEPS + DIST_TIMED) + 4,
-                "roi_align_backward": 2 * (DIST_STEPS + DIST_TIMED), "crop_and_resize": DIST_STEPS + DIST_TIMED}
+    # per rank: the parity steps (given ROIs: no NMS), the train_bn steps (given ROIs), the timed steps, one
+    # batch of each catalog
+    train_steps = DIST_STEPS + BN_STEPS + 2 * BN_TIMED + DIST_TIMED
+    per_rank = {"nms": DIST_TIMED + 4, "roi_align": 2 * train_steps + 4, "roi_align_backward": 2 * train_steps,
+                "crop_and_resize": train_steps}
     if any(r["launches"] != per_rank for r in ranks):
         failures.append(f"launches per rank {[r['launches'] for r in ranks]}, expected {per_rank}")
     detect, detect_inputs = check_dist_detect(card_name)
@@ -2049,35 +2521,47 @@ def check_dist_kernels(rank_inputs: dict, detect_inputs: dict, recs: dict, card_
     path gave them: rank 0's first parity step (f32, 4 images of 256^2,
     given ROIs: the ROIAlign forward at pool 7 and 14, its backward on the
     gradients that reached those outputs, the mask-target crop), its first
-    timed step (bf16, the RPN path: NMS as well) and replica 0's step of
+    timed step (bf16, the RPN path: NMS as well), its first ``train_bn``
+    step (f32, global batch statistics, given ROIs) and replica 0's step of
     the two-replica detect (f32, one 512^2 tile: the RPN's and the
-    per-class NMS, ROIAlign at pool 7 and 14). The tolerances of the seeded
-    cases: NMS exact; the ROIAlign forward within 1 bf16 ulp, at f32 within
-    1e-5 of the element's absolute-contribution sum; the backward and the
-    crop as there."""
+    per-class NMS, ROIAlign at pool 7 and 14)."""
+    check_captured_kernels(
+        {"DP rank parity step": rank_inputs["parity"], "DP rank timed step": rank_inputs["timed"],
+         "DP rank train_bn step": rank_inputs["train_bn"], "2-replica detect": detect_inputs},
+        {"DP rank parity step": (0, 2, 1), "DP rank timed step": (1, 2, 1), "DP rank train_bn step": (0, 2, 1),
+         "2-replica detect": (2, 2, 0)}, recs, card_name, "dist")
+
+
+def check_captured_kernels(cases: dict, expected: dict, recs: dict, card_name: str, phase: str) -> None:
+    """Each kernel against its plain version on the inputs a path gave it
+    (``cases``: label -> :meth:`KernelInputs.inputs`), whose NMS, ROIAlign
+    and crop calls are ``expected`` (label -> counts). A case with a crop is
+    a train step: a gradient must have reached each ROIAlign output, and
+    the backward is checked on it. The tolerances of the seeded cases: NMS
+    exact; the ROIAlign forward within 1 bf16 ulp, at f32 within 1e-5 of
+    the element's absolute-contribution sum; the backward and the crop as
+    there."""
     from caesar_mrcnn_tpu_torch.ops.roi_align import roi_levels
 
-    expected = {"DP rank parity step": (0, 2, 1), "DP rank timed step": (1, 2, 1), "2-replica detect": (2, 2, 0)}
-    cases = {"DP rank parity step": rank_inputs["parity"], "DP rank timed step": rank_inputs["timed"],
-             "2-replica detect": detect_inputs}
     for label, cap in cases.items():
         got = (len(cap["nms"]), len(cap["roi_align"]), len(cap["crop"]))
         if got != expected[label]:
-            raise AssertionError(f"dist: {label} kept {got} NMS, ROIAlign and crop inputs, expected {expected[label]}")
+            raise AssertionError(f"{phase}: {label} kept {got} NMS, ROIAlign and crop inputs, expected "
+                                 f"{expected[label]}")
         for boxes, scores, max_out, thr in cap["nms"]:
             nms_against_plain(recs["nms"], boxes.cuda(), scores.cuda(), max_out, thr, label, card_name)
         for entry in cap["roi_align"]:
             (image, width), pool = entry["image"], entry["pool"]
             levels, boxes = [f.cuda() for f in entry["levels"]], entry["boxes"].cuda()
             if image != width:
-                raise AssertionError(f"dist: {label} ROIAlign at {image}x{width}")
+                raise AssertionError(f"{phase}: {label} ROIAlign at {image}x{width}")
             per_level = roi_levels(boxes, float(image * width)).flatten().long().bincount(minlength=4).tolist()
             print(f"kernels: {label} ROIs at pool {pool}: {tuple(boxes.shape[:2])}, per level P2..P5 {per_level}")
             roi_align_against_plain(recs["roi_align"], levels, boxes, image, pool, label, card_name)
             if "grad" in entry:
                 backward_against_plain(recs["roi_align_backward"], entry["grad"].cuda(), boxes, label, card_name)
-            elif label != "2-replica detect":
-                raise AssertionError(f"dist: {label} ROIAlign at pool {pool}: no gradient reached its output")
+            elif expected[label][2]:
+                raise AssertionError(f"{phase}: {label} ROIAlign at pool {pool}: no gradient reached its output")
         for masks, dtype, boxes, assign, crop in cap["crop"]:
             crop_against_plain(recs["crop_and_resize"], masks.cuda().to(dtype), boxes.cuda(), assign.cuda(), crop,
                                label, card_name)
@@ -2582,6 +3066,9 @@ def main() -> None:
                                           "crop_and_resize": crop}, card_name)
         check_train_parity(ds, card_name)
         torch.cuda.empty_cache()
+        options = check_train_options(ds, {"nms": nms, "roi_align": roi, "roi_align_backward": roi_bwd,
+                                           "crop_and_resize": crop}, card_name)
+        torch.cuda.empty_cache()
         dist = check_dist(ds, ds_paths, {"nms": nms, "roi_align": roi, "roi_align_backward": roi_bwd,
                                          "crop_and_resize": crop}, card_name)
     torch.cuda.empty_cache()
@@ -2598,9 +3085,9 @@ def main() -> None:
     t = time.perf_counter()
     classify = check_classify({"nms": nms, "roi_align": roi}, card_name)
     print(f"classify: phase {time.perf_counter() - t:.2f} s [{card_name}]")
-    print(f"launches: detect path {detect}, catalog path {catalog}, train path {train}, dist {dist}, "
-          f"serving path {serving}, export path {export}, cli {cli}, classify {classify}")
-    paths = (detect, catalog, train, dist, serving, export, cli, classify)
+    print(f"launches: detect path {detect}, catalog path {catalog}, train path {train}, train options {options}, "
+          f"dist {dist}, serving path {serving}, export path {export}, cli {cli}, classify {classify}")
+    paths = (detect, catalog, train, options, dist, serving, export, cli, classify)
 
     def record(name, source, replaces, rec, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"caesar_mrcnn_tpu_torch/csrc/{source}",

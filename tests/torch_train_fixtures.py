@@ -9,10 +9,12 @@ import dataclasses
 
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from caesar_mrcnn_tpu.config import Config as JaxConfig
+from caesar_mrcnn_tpu.train.trainer import TrainState
 from caesar_mrcnn_tpu_torch import weights as W
 from caesar_mrcnn_tpu_torch.config import detector_config
 from caesar_mrcnn_tpu_torch.data.dataset import SourceDataset
@@ -69,15 +71,15 @@ def tiny_dataset(tmp):
 _TREES = {}
 
 
-def seeded_weights(cfg, seed=0):
+def seeded_weights(cfg, seed=0, settle=True):
     """(port model, numpy flax tree) with the same weights: flax's default
     kernels from ``seed``, and biases and batch norms drawn nonzero (scale
     0.5..1.5, var 0.5..2, the rest +-0.1) so that no tensor starts at 0 and
-    a parameter's relative error measures its gradient's; then settled
-    (stem / 255, background bias -1) so that softmaxes do not saturate on
-    raw 0..255 pixels. The tree is made once per config and seed and
-    shared: do not change it in place."""
-    key = (repr(cfg), seed)
+    a parameter's relative error measures its gradient's; then, with
+    ``settle``, settled (stem / 255, background bias -1) so that softmaxes
+    do not saturate on raw 0..255 pixels. The tree is made once per config,
+    seed and ``settle`` and shared: do not change it in place."""
+    key = (repr(cfg), seed, settle)
     if key not in _TREES:
         model = MaskRCNN(cfg)
         W.init_weights(model, torch.Generator().manual_seed(seed))
@@ -91,7 +93,7 @@ def seeded_weights(cfg, seed=0):
             return rng.uniform(low, high, leaf.shape).astype(np.float32)
 
         tree = jax.tree_util.tree_map_with_path(fill, W.state_dict_to_flax(model.state_dict()))
-        _TREES[key] = settle_flax_weights(tree)
+        _TREES[key] = settle_flax_weights(tree) if settle else tree
     model = MaskRCNN(cfg)
     model.load_state_dict(W.flax_to_state_dict(_TREES[key]))
     return model, _TREES[key]
@@ -129,3 +131,28 @@ def param_errors(got_tree, ref_tree, start_tree=None, tol=1e-4):
         out.append((jax.tree_util.keystr(path), ref.size, int((err > tol * scale).sum()),
                     float(err.max()), float(err.max() / scale)))
     return out
+
+
+def jax_state_from(model, opt, tx):
+    """The JAX train state of the port's model and optimizer: parameters,
+    running statistics, and optax's moments and count in the places
+    ``tx.init`` gives them."""
+    tree = W.state_dict_to_flax({k: v.clone() for k, v in model.state_dict().items()})
+    params, stats = tree["params"], tree.get("batch_stats", {})
+    moments = {k: W.state_dict_to_flax({n: t.float() for n, t in v.items()})["params"]
+               for k, v in opt.state_dict()["state"].items()}
+
+    def fill(path, leaf):
+        names = [getattr(p, "name", None) for p in path]
+        for kind in ("mu", "nu", "trace"):
+            if kind in names:
+                node = moments[kind]
+                for p in path[names.index(kind) + 1:]:
+                    node = node[p.key]
+                return jnp.asarray(np.array(node), leaf.dtype)  # a copy: the port's step updates in place
+        if "count" in names:
+            return jnp.asarray(opt.count, leaf.dtype)
+        return leaf
+
+    opt_state = jax.tree_util.tree_map_with_path(fill, tx.init(params))
+    return TrainState(jnp.zeros((), jnp.int32), params, stats, opt_state)
