@@ -1,0 +1,8 @@
+"""Per cent of the traced segment in which nothing ran on the device."""
+
+
+def read(record):
+    trace = record.get("trace")
+    if trace is None or trace.window_s <= 0 or trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)
