@@ -53,7 +53,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .. import logger
+from .. import logger, telemetry
 from ..config import Config
 from ..parallel.dist import SerialComm, get_comm
 from ..utils import fits as F
@@ -165,7 +165,12 @@ class SFinder:
     # ------------------------------------------------------------- tiled
     def run_tiled(self, image_path: str) -> Dict:
         """Tile-decomposed source finding with cross-tile merging
-        (reference run_parallel: sfinder.py:549-636)."""
+        (reference run_parallel: sfinder.py:549-636). Under
+        ``telemetry.recording()`` its stages are the spans ``catalog.read``
+        (the producer thread's FITS read and zscale of a chunk),
+        ``catalog.wait`` (the main loop waiting for a chunk),
+        ``catalog.sources`` (``_tile_sources`` of a batch),
+        ``catalog.gather``, ``catalog.merge`` and ``catalog.save``."""
         cfg = self.config
         if cfg.tile_wire == "raw":
             raise ValueError(
@@ -258,8 +263,9 @@ class SFinder:
         def producer():
             try:
                 for chunk in chunks:
-                    items = [read_one(x1, x2, y1, y2)
-                             for _, (x1, x2, y1, y2) in chunk]
+                    with telemetry.span("catalog.read"):
+                        items = [read_one(x1, x2, y1, y2)
+                                 for _, (x1, x2, y1, y2) in chunk]
                     q.put((chunk, items))
                 q.put(None)
             except Exception as e:  # noqa: BLE001
@@ -289,15 +295,17 @@ class SFinder:
             results = (
                 self.detector.collect(payload) if kind == "handle" else payload
             )
-            for (tile_idx, tile), (_, img), r in zip(chunk, items, results):
-                my_sources.extend(
-                    self._tile_sources(tile_idx, tile, tiles, img, r)
-                )
+            with telemetry.span("catalog.sources"):
+                for (tile_idx, tile), (_, img), r in zip(chunk, items, results):
+                    my_sources.extend(
+                        self._tile_sources(tile_idx, tile, tiles, img, r)
+                    )
 
         depth = max(0, int(getattr(cfg, "tile_pipeline_depth", 2)))
         pending: deque = deque()
         while True:
-            item = q.get()
+            with telemetry.span("catalog.wait"):
+                item = q.get()
             if item is None:
                 break
             if isinstance(item, Exception):
@@ -311,21 +319,24 @@ class SFinder:
 
         # gather to rank 0 (replaces pickled MPI send/recv,
         # reference: sfinder.py:940-988)
-        gathered = self.comm.gather(my_sources)
-        self.comm.barrier()
+        with telemetry.span("catalog.gather"):
+            gathered = self.comm.gather(my_sources)
+            self.comm.barrier()
         if gathered is None:  # non-master rank
             return {}
         # back in tile order (rank r held tiles r, r + size, ...), so that
         # the catalog is the one-process catalog whatever the rank count
         all_sources = sorted((s for worker in gathered for s in worker), key=lambda s: s["tile"])
 
-        merged = self._merge_edge_sources(all_sources)
-        self.sources = {"image_id": self.image_id, "objs": []}
-        for i, src in enumerate(merged):
-            src["name"] = f"S{i + 1}"
-            self._add_source_params(src)
-            self.sources["objs"].append(src)
-        self.save()
+        with telemetry.span("catalog.merge"):
+            merged = self._merge_edge_sources(all_sources)
+            self.sources = {"image_id": self.image_id, "objs": []}
+            for i, src in enumerate(merged):
+                src["name"] = f"S{i + 1}"
+                self._add_source_params(src)
+                self.sources["objs"].append(src)
+        with telemetry.span("catalog.save"):
+            self.save()
         logger.info(
             "SFinder.run_tiled done in %.2f s (%d tiles, %d sources)",
             time.time() - t0, len(tiles), len(self.sources["objs"]),

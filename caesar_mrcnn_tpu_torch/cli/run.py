@@ -6,10 +6,15 @@ and config overrides, and weights restored by name (``--weights``: a
 ``.pt`` checkpoint of the port or a Keras ``.h5``) with optional layer
 exclusion.
 
-It adds one flag, ``--device`` (default ``cuda``): the card, unless the
-caller asks for the CPU (``--device cpu``, where the kernels' plain
-versions run). ``cuda`` without a card raises; nothing falls back to the
-CPU.
+It adds two flags:
+
+* ``--device`` (default ``cuda``): the card, unless the caller asks for
+  the CPU (``--device cpu``, where the kernels' plain versions run).
+  ``cuda`` without a card raises; nothing falls back to the CPU;
+* ``--telemetry FILE`` (``detect``): records the run's spans and counters
+  (``telemetry.py``), writes their summary (``Recorder.summary()``, JSON)
+  to ``FILE`` (``FILE.rank<r>`` from each rank of several processes) and
+  logs one line of each span's total.
 
 ``--ngpu N`` (data parallelism, the JAX CLI's device mesh):
 
@@ -54,6 +59,7 @@ Where it differs from the JAX CLI:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -62,7 +68,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .. import logger
+from .. import logger, telemetry
 from ..config import Config, detector_config, inference_config
 
 DEFAULT_LOGS_DIR = "logs"
@@ -81,6 +87,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     )
     parser.add_argument("--export_path", type=str, default=None,
                         help="output path for the 'export' command")
+    parser.add_argument("--telemetry", type=str, default=None, metavar="FILE",
+                        help="detect: record the run's spans and counters and write their summary (JSON) to FILE")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on: the card ('cuda', the default) unless 'cpu' is asked for")
 
@@ -694,10 +702,19 @@ def run_detect(args, cfg: Config) -> int:
     sf = SFinder(detector, detector.config)
     sf.outfile_json = args.detect_outfile_json
     sf.outfile_img = args.detect_outfile
-    if cfg.split_img_in_tiles:
-        sf.run_tiled(args.image)
-    else:
-        sf.run(args.image, xmin=args.xmin, xmax=args.xmax, ymin=args.ymin, ymax=args.ymax)
+    with telemetry.recording() if args.telemetry else contextlib.nullcontext() as rec:
+        if cfg.split_img_in_tiles:
+            sf.run_tiled(args.image)
+        else:
+            sf.run(args.image, xmin=args.xmin, xmax=args.xmax, ymin=args.ymin, ymax=args.ymax)
+    if rec is not None:
+        summary = rec.summary()
+        path = args.telemetry if sf.comm.size == 1 else f"{args.telemetry}.rank{sf.comm.rank}"
+        with open(path, "w") as f:
+            json.dump(summary, f, indent=1)
+        logger.info("telemetry (%d batches; total ms): %s -> %s", summary["batches"],
+                    ", ".join(f"{name} {row['total_ms']:.1f}" for name, row in sorted(summary["spans"].items())),
+                    path)
     return 0
 
 

@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import telemetry
 from .. import weights as W
 from ..config import Config
 from ..models.mask_rcnn import MaskRCNN, forward_inference
@@ -76,6 +77,7 @@ class Detector:
         self._stages = None  # the int8 graph (heads_int8.DetectStages)
         self._replica_stages = None  # the other devices' int8 graphs
         self._stages_version = None  # the weights' version it was quantized from
+        self._batch_ids = itertools.count()  # the id of each batch, carried by its handle and its spans
 
     def _device_constants(self, dev):
         cfg = self.config
@@ -228,8 +230,16 @@ class Detector:
         # Pasting into one preallocated [H, W, n] frame: stacking n separate
         # full frames along the last axis cost ~1.2 ms per detection.
         full_masks = np.zeros(tuple(original_image_shape[:2]) + (len(boxes),), dtype=bool)
-        for i in range(len(boxes)):
-            I.paste_mask(masks[i], boxes[i], full_masks[..., i])
+        if telemetry.active():
+            resize_ns = write_ns = 0
+            for i in range(len(boxes)):
+                r, w = I.paste_mask_timed(masks[i], boxes[i], full_masks[..., i])
+                resize_ns, write_ns = resize_ns + r, write_ns + w
+            telemetry.count("detect.unmold.resize_ns", resize_ns)
+            telemetry.count("detect.unmold.write_ns", write_ns)
+        else:
+            for i in range(len(boxes)):
+                I.paste_mask(masks[i], boxes[i], full_masks[..., i])
         return boxes, class_ids, scores, full_masks
 
     # ------------------------------------------------- tiled fast path
@@ -239,7 +249,9 @@ class Detector:
         ``tiles``: [B, H, W] (grayscale, broadcast to the model's channels on
         the device) or [B, H, W, C], any dtype (u8 on the fast path);
         (H, W) must equal ``config.image_shape[:2]``. Returns a handle for
-        :meth:`collect`.
+        :meth:`collect`: ``(host outputs, events, n_in, shape, batch id)``,
+        its events (``handle[1]``) recorded after the step's copies to the
+        host.
         """
         cfg = self.config
         h, w, c = cfg.image_shape
@@ -248,12 +260,14 @@ class Detector:
             raise ValueError(f"dispatch_tiles got {n_in} tiles, batch_size={bs}")
         if tuple(tiles.shape[1:3]) != (h, w):
             raise ValueError(f"tiles {tiles.shape[1:3]} != network input {(h, w)}")
-        if n_in < bs:
-            tiles = np.concatenate([tiles, np.repeat(tiles[-1:], bs - n_in, axis=0)])
+        batch = next(self._batch_ids)
         cuda = self.device.type == "cuda"
-        host = torch.from_numpy(np.ascontiguousarray(tiles))
-        if cuda:
-            host = host.pin_memory()
+        with telemetry.span("detect.stage_in", batch=batch):
+            if n_in < bs:
+                tiles = np.concatenate([tiles, np.repeat(tiles[-1:], bs - n_in, axis=0)])
+            host = torch.from_numpy(np.ascontiguousarray(tiles))
+            if cuda:
+                host = host.pin_memory()
 
         def inputs(rows, index):
             # premold on the device: cast, gray -> channels, mean subtraction
@@ -263,9 +277,9 @@ class Detector:
             metas = self._constants((h, w, c), index)[1]
             return x - self._consts_of[index][2], metas[:1].expand(x.shape[0], -1)
 
-        return self._run_slices(inputs, n_in, (h, w, c))
+        return self._run_slices(inputs, n_in, (h, w, c), batch)
 
-    def _run_slices(self, inputs, n_in: int, shape):
+    def _run_slices(self, inputs, n_in: int, shape, batch: int):
         """Each device's step on its slice of the batch (``inputs(rows,
         index)`` gives its molded images and metas, on the device), its
         results' copies to the host started; returns the handle of
@@ -281,12 +295,15 @@ class Detector:
             rows = shard_rows(self.config.batch_size, n, i)
             anchors = self._constants(shape, i)[0]
             with torch.cuda.device(dev) if cuda else contextlib.nullcontext():
-                out = self._step(*inputs(rows, i), anchors, max(0, min(n_in, rows.stop) - rows.start), i)
-                fetched.append([self._to_host(t, cuda) for t in (out.detections, out.masks)])
-                if cuda:
-                    events.append(torch.cuda.Event())
-                    events[-1].record()
-        return fetched, events, n_in, shape
+                with telemetry.span("detect.stage_in", batch=batch):
+                    molded, metas = inputs(rows, i)
+                with telemetry.span("detect.step", batch=batch):
+                    out = self._step(molded, metas, anchors, max(0, min(n_in, rows.stop) - rows.start), i)
+                    fetched.append([self._to_host(t, cuda) for t in (out.detections, out.masks)])
+                    if cuda:
+                        events.append(torch.cuda.Event())
+                        events[-1].record()
+        return fetched, events, n_in, shape, batch
 
     @staticmethod
     def _to_host(t: torch.Tensor, pinned: bool) -> torch.Tensor:
@@ -297,25 +314,28 @@ class Detector:
         return dst
 
     def fetch(self, handle):
-        """Wait for a dispatched batch: (detections, masks, n_in, shape)."""
-        fetched, events, n_in, shape = handle
-        for event in events:
-            event.synchronize()
-        detections, masks = (np.concatenate([f[j].numpy() for f in fetched]) if len(fetched) > 1
-                             else fetched[0][j].numpy() for j in (0, 1))
-        return detections, masks, n_in, shape
+        """Wait for a dispatched batch: (detections, masks, n_in, shape,
+        batch id)."""
+        fetched, events, n_in, shape, batch = handle
+        with telemetry.span("detect.fetch", batch=batch):
+            for event in events:
+                event.synchronize()
+            detections, masks = (np.concatenate([f[j].numpy() for f in fetched]) if len(fetched) > 1
+                                 else fetched[0][j].numpy() for j in (0, 1))
+        return detections, masks, n_in, shape, batch
 
     def unmold_fetched(self, fetched) -> List[Dict]:
         """Host unmold of a fetched batch (full-frame tile windows)."""
-        detections, masks, n_in, shape = fetched
+        detections, masks, n_in, shape, batch = fetched
         window = (0, 0, shape[0], shape[1])
         results = []
-        for i in range(n_in):
-            rois, class_ids, scores, full_masks = self.unmold_detections(
-                detections[i], masks[i], shape, shape, window
-            )
-            results.append({"rois": rois, "class_ids": class_ids, "scores": scores,
-                            "masks": full_masks})
+        with telemetry.span("detect.unmold", batch=batch):
+            for i in range(n_in):
+                rois, class_ids, scores, full_masks = self.unmold_detections(
+                    detections[i], masks[i], shape, shape, window
+                )
+                results.append({"rois": rois, "class_ids": class_ids, "scores": scores,
+                                "masks": full_masks})
         return results
 
     def collect(self, handle) -> List[Dict]:
@@ -343,14 +363,16 @@ class Detector:
             dev = self.devices[index]
             return torch.from_numpy(molded[rows]).to(dev), torch.from_numpy(metas[rows]).to(dev)
 
-        detections, masks, _, _ = self.fetch(self._run_slices(inputs, n_in, molded.shape[1:]))
+        handle = self._run_slices(inputs, n_in, molded.shape[1:], next(self._batch_ids))
+        detections, masks, _, _, batch = self.fetch(handle)
         results = []
-        for i in range(n_in):
-            rois, class_ids, scores, full_masks = self.unmold_detections(
-                detections[i], masks[i], images[i].shape, molded[i].shape, windows[i]
-            )
-            results.append({"rois": rois, "class_ids": class_ids, "scores": scores,
-                            "masks": full_masks})
+        with telemetry.span("detect.unmold", batch=batch):
+            for i in range(n_in):
+                rois, class_ids, scores, full_masks = self.unmold_detections(
+                    detections[i], masks[i], images[i].shape, molded[i].shape, windows[i]
+                )
+                results.append({"rois": rois, "class_ids": class_ids, "scores": scores,
+                                "masks": full_masks})
         return results
 
 

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import telemetry
 from ..ops.roi_align import roi_align
 from .backbone import FPN, ResNet, stage_widths
 from .detection import refine_detections
@@ -103,48 +104,51 @@ def forward_inference(
     """The detect graph; every tensor lives on ``images.device`` and nothing
     is read back to the host. ``model`` is a ``MaskRCNN`` or any object
     with its ``config``, ``features``, ``rpn``, ``classifier`` and ``mask``
-    (the int8 graph: ``heads_int8.DetectStages``)."""
+    (the int8 graph: ``heads_int8.DetectStages``). Its three stages are the
+    telemetry spans ``detect.step.features``, ``.proposals`` and ``.heads``."""
     cfg = model.config
-    pyramid = model.features(images)
-    _, rpn_probs, rpn_bbox = model.rpn(pyramid)
-    proposals, _ = generate_proposals(
-        rpn_probs, rpn_bbox, anchors, rpn_bbox_std_dev,
-        proposal_count=cfg.post_nms_rois_inference,
-        nms_threshold=cfg.rpn_nms_threshold,
-        pre_nms_limit=cfg.pre_nms_limit,
-    )
+    with telemetry.span("detect.step.features"):
+        pyramid = model.features(images)
+    with telemetry.span("detect.step.proposals"):
+        _, rpn_probs, rpn_bbox = model.rpn(pyramid)
+        proposals, _ = generate_proposals(
+            rpn_probs, rpn_bbox, anchors, rpn_bbox_std_dev,
+            proposal_count=cfg.post_nms_rois_inference,
+            nms_threshold=cfg.rpn_nms_threshold,
+            pre_nms_limit=cfg.pre_nms_limit,
+        )
+    with telemetry.span("detect.step.heads"):
+        levels = nhwc_levels(pyramid)
+        image_shape = cfg.image_shape[:2]
+        pooled = roi_align(levels, proposals, image_shape, cfg.pool_size)
+        _, probs, deltas = model.classifier(pooled)
 
-    levels = nhwc_levels(pyramid)
-    image_shape = cfg.image_shape[:2]
-    pooled = roi_align(levels, proposals, image_shape, cfg.pool_size)
-    _, probs, deltas = model.classifier(pooled)
+        # window in normalized coordinates
+        h = image_metas[:, 4:5]
+        w = image_metas[:, 5:6]
+        scale = torch.cat([h - 1, w - 1, h - 1, w - 1], dim=1)
+        shift = torch.cat([torch.zeros_like(h), torch.zeros_like(h),
+                           torch.ones_like(h), torch.ones_like(h)], dim=1)
+        windows = (image_metas[:, 7:11] - shift) / scale
 
-    # window in normalized coordinates
-    h = image_metas[:, 4:5]
-    w = image_metas[:, 5:6]
-    scale = torch.cat([h - 1, w - 1, h - 1, w - 1], dim=1)
-    shift = torch.cat([torch.zeros_like(h), torch.zeros_like(h),
-                       torch.ones_like(h), torch.ones_like(h)], dim=1)
-    windows = (image_metas[:, 7:11] - shift) / scale
+        detections = refine_detections(
+            proposals, probs, deltas, windows, bbox_std_dev,
+            num_classes=cfg.num_classes,
+            max_instances=cfg.detection_max_instances,
+            min_confidence=cfg.detection_min_confidence,
+            nms_threshold=cfg.detection_nms_threshold,
+        )
 
-    detections = refine_detections(
-        proposals, probs, deltas, windows, bbox_std_dev,
-        num_classes=cfg.num_classes,
-        max_instances=cfg.detection_max_instances,
-        min_confidence=cfg.detection_min_confidence,
-        nms_threshold=cfg.detection_nms_threshold,
-    )
-
-    mask_pooled = roi_align(levels, detections[..., :4].contiguous(), image_shape,
-                            cfg.mask_pool_size)
-    mrcnn_mask = model.mask(mask_pooled)  # [B, D, mh, mw, K]
-    det_class = detections[..., 4].long()
-    idx = det_class[:, :, None, None, None].expand(-1, -1, *mrcnn_mask.shape[2:4], 1)
-    masks = torch.gather(mrcnn_mask, 4, idx)[..., 0]
-    if cfg.mask_wire_dtype == "uint8":
-        # u8 wire: unmold thresholds at 0.5 after a bilinear resize, so the
-        # 1/255 quantization is invisible there
-        masks = torch.round(masks * 255.0).to(torch.uint8)
+        mask_pooled = roi_align(levels, detections[..., :4].contiguous(), image_shape,
+                                cfg.mask_pool_size)
+        mrcnn_mask = model.mask(mask_pooled)  # [B, D, mh, mw, K]
+        det_class = detections[..., 4].long()
+        idx = det_class[:, :, None, None, None].expand(-1, -1, *mrcnn_mask.shape[2:4], 1)
+        masks = torch.gather(mrcnn_mask, 4, idx)[..., 0]
+        if cfg.mask_wire_dtype == "uint8":
+            # u8 wire: unmold thresholds at 0.5 after a bilinear resize, so the
+            # 1/255 quantization is invisible there
+            masks = torch.round(masks * 255.0).to(torch.uint8)
     return InferenceOutput(detections, masks, proposals, rpn_probs)
 
 

@@ -1,8 +1,12 @@
 """Training metrics stream (port of ``MetricsLogger`` in
 ``caesar_mrcnn_tpu/train/observability.py``): the same file
 (``<name>_metrics.jsonl``), rows and keys. The loss-curve PNG needs
-matplotlib, which the port does not use (ROADMAP A16c); the FLOP and
-roofline counts, ``PhaseTimer`` and ``device_trace`` wait for A7.
+matplotlib, which the port does not use (ROADMAP A16c). The JAX module's
+``PhaseTimer`` and ``device_trace`` have their counterpart in the port's
+``telemetry.py`` (spans and counters, under ``torch.profiler``
+``user_annotation`` events when a profiler runs), which spans the detect
+path and not yet the train step; the FLOP and roofline counts are the
+benchmark's (``benchmark/flops.py``, ``benchmark/bounds.py``).
 """
 
 from __future__ import annotations

@@ -8,6 +8,7 @@ clamp at the border.
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -110,6 +111,17 @@ def paste_mask(mask: np.ndarray, bbox, frame: np.ndarray) -> None:
     threshold it at 0.5 and write it into the bool ``frame`` [H, W]."""
     y1, x1, y2, x2 = [int(v) for v in bbox]
     frame[y1:y2, x1:x2] = resize(mask, (y2 - y1, x2 - x1)) >= 0.5
+
+
+def paste_mask_timed(mask: np.ndarray, bbox, frame: np.ndarray) -> Tuple[int, int]:
+    """:func:`paste_mask`, its two halves timed apart: (ns of the resize,
+    ns of the threshold and the write into ``frame``)."""
+    y1, x1, y2, x2 = [int(v) for v in bbox]
+    t0 = time.perf_counter_ns()
+    small = resize(mask, (y2 - y1, x2 - x1))
+    t1 = time.perf_counter_ns()
+    frame[y1:y2, x1:x2] = small >= 0.5
+    return t1 - t0, time.perf_counter_ns() - t1
 
 
 def unmold_mask(mask: np.ndarray, bbox, image_shape) -> np.ndarray:

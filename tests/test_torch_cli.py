@@ -76,6 +76,7 @@ def test_flags_and_config_equal_jax(case):
     got, ref = tcli.parse_args(argv), jcli.parse_args(argv)
     flags = vars(got)
     assert flags.pop("device") == "cuda"
+    assert flags.pop("telemetry") is None
     assert flags == vars(ref)
     assert dataclasses.asdict(tcli.build_config(got)) == dataclasses.asdict(jcli.build_config(ref))
 

@@ -15,7 +15,9 @@ with the classifier's bias set to ``[0, 0, 6, 0]``, carried to the port by
   the same ``caesar`` operators in the same order;
 * the exported graphs' ``caesar::*`` nodes: 2 NMS and 2 ROIAlign, and in
   the int8 graph one ``conv2d_int8`` per site and one ``quantize_int8``
-  per input that no convolution quantized in its epilogue;
+  per input that no convolution quantized in its epilogue; no profiler
+  node (the telemetry spans of ``forward_inference`` add none while
+  recording is off);
 * the sidecar, partial batches, the size and count checks, the zero-area
   drop, the refusal of an int8 detector with no int8 graph, and
   ``torch.library.opcheck`` of the six operators;
@@ -171,6 +173,8 @@ def test_exported_graphs_hold_the_kernel_operators(servers, weights):
                 "int8": {"nms": 2, "roi_align": 2, "conv2d_int8": len(sites), "quantize_int8": len(sites) - len(fused)}}
     for graph, want in expected.items():
         assert caesar_nodes(servers[graph].program) == want, graph
+        # exported with telemetry off: no record_function of a span in the graph
+        assert not [n for n in servers[graph].program.graph.nodes if "profiler" in str(n.target)], graph
 
 
 def test_serving_detector_partial_batch_and_validation(servers):
