@@ -6,9 +6,11 @@ on host images, and the tiled fast path :meth:`Detector.dispatch_tiles` /
 :meth:`Detector.collect` (or :meth:`Detector.detect_tiles`) on u8 tiles. On
 a CUDA device, ``dispatch_tiles`` copies the tiles from pinned memory
 asynchronously, enqueues the whole step, starts the device->host copies of
-the results into pinned buffers and records an event; ``collect`` waits on
-that event and unmolds. Nothing in between reads a value back to the host,
-so a caller can keep several batches in flight.
+the results into pinned buffers, launches the paste of every tile's masks
+into its full frame in pinned host memory (``ops/paste.py``) and records
+an event; ``collect`` waits on that event and unmolds, which then only
+views the frames. Nothing in between reads a value back to the host, so a
+caller can keep several batches in flight.
 
 With ``config.quant_mode="int8"`` the step runs the int8 graph
 (``models/heads_int8.py``): the first batch of :meth:`Detector.detect` or
@@ -31,6 +33,7 @@ quantized tree.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import itertools
@@ -45,6 +48,7 @@ from .. import weights as W
 from ..config import Config
 from ..models.mask_rcnn import MaskRCNN, forward_inference
 from ..models.meta import compose_image_meta
+from ..ops import paste as P
 from ..parallel.mesh import local_devices, shard_rows
 from ..utils import boxes as B
 from ..utils import image as I
@@ -78,6 +82,7 @@ class Detector:
         self._replica_stages = None  # the other devices' int8 graphs
         self._stages_version = None  # the weights' version it was quantized from
         self._batch_ids = itertools.count()  # the id of each batch, carried by its handle and its spans
+        self._pasting = collections.deque()  # (events, frames) of batches the device may still write
 
     def _device_constants(self, dev):
         cfg = self.config
@@ -249,9 +254,10 @@ class Detector:
         ``tiles``: [B, H, W] (grayscale, broadcast to the model's channels on
         the device) or [B, H, W, C], any dtype (u8 on the fast path);
         (H, W) must equal ``config.image_shape[:2]``. Returns a handle for
-        :meth:`collect`: ``(host outputs, events, n_in, shape, batch id)``,
-        its events (``handle[1]``) recorded after the step's copies to the
-        host.
+        :meth:`collect`: ``(host outputs, events, n_in, shape, batch id,
+        frames)``, its events (``handle[1]``) recorded after the step's
+        copies to the host and, with the u8 mask wire, the paste of each
+        real tile's masks into its frame (``frames``; else None).
         """
         cfg = self.config
         h, w, c = cfg.image_shape
@@ -277,33 +283,41 @@ class Detector:
             metas = self._constants((h, w, c), index)[1]
             return x - self._consts_of[index][2], metas[:1].expand(x.shape[0], -1)
 
-        return self._run_slices(inputs, n_in, (h, w, c), batch)
+        return self._run_slices(inputs, n_in, (h, w, c), batch, cfg.mask_wire_dtype == "uint8")
 
-    def _run_slices(self, inputs, n_in: int, shape, batch: int):
+    def _run_slices(self, inputs, n_in: int, shape, batch: int, paste: bool = False):
         """Each device's step on its slice of the batch (``inputs(rows,
         index)`` gives its molded images and metas, on the device), its
-        results' copies to the host started; returns the handle of
-        :meth:`fetch`. Over several devices an int8 graph is calibrated
-        first, on the first device over the global batch's real images."""
+        results' copies to the host started and, with ``paste``, its real
+        tiles' masks pasted into new frames (full-frame tile windows);
+        returns the handle of :meth:`fetch`. Over several devices an int8
+        graph is calibrated first, on the first device over the global
+        batch's real images."""
         n = len(self.devices)
         cuda = self.device.type == "cuda"
         if n > 1 and self.config.quant_mode == "int8" and self.int8_graph() is None:
             with torch.inference_mode():
                 self._quantize_molded(*inputs(slice(0, n_in), 0), self._constants(shape)[0])
-        fetched, events = [], []
+        self._release_pasted()
+        fetched, events, frames = [], [], [] if paste else None
         for i, dev in enumerate(self.devices):
             rows = shard_rows(self.config.batch_size, n, i)
+            real = max(0, min(n_in, rows.stop) - rows.start)
             anchors = self._constants(shape, i)[0]
             with torch.cuda.device(dev) if cuda else contextlib.nullcontext():
                 with telemetry.span("detect.stage_in", batch=batch):
                     molded, metas = inputs(rows, i)
                 with telemetry.span("detect.step", batch=batch):
-                    out = self._step(molded, metas, anchors, max(0, min(n_in, rows.stop) - rows.start), i)
+                    out = self._step(molded, metas, anchors, real, i)
                     fetched.append([self._to_host(t, cuda) for t in (out.detections, out.masks)])
+                    if paste:
+                        frames += self._paste(out.detections[:real], out.masks[:real], shape[:2], cuda)
                     if cuda:
                         events.append(torch.cuda.Event())
                         events[-1].record()
-        return fetched, events, n_in, shape, batch
+        if paste:
+            self._pasting.append((events, frames))
+        return fetched, events, n_in, shape, batch, frames
 
     @staticmethod
     def _to_host(t: torch.Tensor, pinned: bool) -> torch.Tensor:
@@ -313,29 +327,61 @@ class Detector:
         dst.copy_(t, non_blocking=True)
         return dst
 
+    @staticmethod
+    def _paste(detections: torch.Tensor, masks: torch.Tensor, hw, pinned: bool) -> List[torch.Tensor]:
+        """New frames for the tiles of ``detections``, their masks' paste
+        into them launched (``ops/paste.py``): on a CUDA device, pinned
+        host blocks that the kernel writes over PCIe and that PyTorch's
+        host allocator hands out again once the caller drops them."""
+        size = hw[0] * hw[1] * detections.shape[1]
+        frames = [torch.empty(size, dtype=torch.bool, pin_memory=pinned) for _ in range(detections.shape[0])]
+        P.paste_masks(detections, masks, frames, hw)
+        return frames
+
+    def _release_pasted(self) -> None:
+        """Let go of the frames of the batches whose events have completed.
+        Until then the detector holds them, so that a handle dropped
+        unfetched cannot free a frame the device still writes."""
+        while self._pasting and all(e.query() for e in self._pasting[0][0]):
+            self._pasting.popleft()
+
     def fetch(self, handle):
         """Wait for a dispatched batch: (detections, masks, n_in, shape,
-        batch id)."""
-        fetched, events, n_in, shape, batch = handle
+        batch id, frames), ``frames`` the real tiles' pasted frames in
+        order over the devices (None where the batch was not pasted)."""
+        fetched, events, n_in, shape, batch, frames = handle
         with telemetry.span("detect.fetch", batch=batch):
             for event in events:
                 event.synchronize()
+            self._release_pasted()
             detections, masks = (np.concatenate([f[j].numpy() for f in fetched]) if len(fetched) > 1
                                  else fetched[0][j].numpy() for j in (0, 1))
-        return detections, masks, n_in, shape, batch
+        return detections, masks, n_in, shape, batch, frames
 
     def unmold_fetched(self, fetched) -> List[Dict]:
-        """Host unmold of a fetched batch (full-frame tile windows)."""
-        detections, masks, n_in, shape, batch = fetched
+        """Unmold of a fetched batch (full-frame tile windows): each pasted
+        tile's masks a ``[H, W, n]`` view of its frame; the f32 mask wire's
+        (``frames`` None) by the host unmold."""
+        detections, masks, n_in, shape, batch, frames = fetched
         window = (0, 0, shape[0], shape[1])
         results = []
         with telemetry.span("detect.unmold", batch=batch):
-            for i in range(n_in):
-                rois, class_ids, scores, full_masks = self.unmold_detections(
-                    detections[i], masks[i], shape, shape, window
-                )
-                results.append({"rois": rois, "class_ids": class_ids, "scores": scores,
-                                "masks": full_masks})
+            if frames is None:
+                for i in range(n_in):
+                    rois, class_ids, scores, full_masks = self.unmold_detections(
+                        detections[i], masks[i], shape, shape, window
+                    )
+                    results.append({"rois": rois, "class_ids": class_ids, "scores": scores,
+                                    "masks": full_masks})
+            else:
+                h, w = shape[:2]
+                for i in range(n_in):
+                    rows, rois = P.kept_boxes(detections[i], (h, w))
+                    k = len(rows)
+                    results.append({"rois": rois, "class_ids": detections[i, rows, 4].astype(np.int32),
+                                    "scores": detections[i, rows, 5],
+                                    "masks": frames[i][: h * w * k].view(h, w, k).numpy()})
+                telemetry.count("detect.unmold.device_pasted", sum(len(r["scores"]) for r in results))
         return results
 
     def collect(self, handle) -> List[Dict]:
@@ -364,7 +410,7 @@ class Detector:
             return torch.from_numpy(molded[rows]).to(dev), torch.from_numpy(metas[rows]).to(dev)
 
         handle = self._run_slices(inputs, n_in, molded.shape[1:], next(self._batch_ids))
-        detections, masks, _, _, batch = self.fetch(handle)
+        detections, masks, _, _, batch, _ = self.fetch(handle)
         results = []
         with telemetry.span("detect.unmold", batch=batch):
             for i in range(n_in):

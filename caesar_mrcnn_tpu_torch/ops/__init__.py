@@ -1,6 +1,7 @@
 """Device ops: batched NMS, multilevel ROIAlign and its gradient, the
 mask-target crop_and_resize, the int8 quantizer and the int8 convolution,
-each a CUDA kernel with its plain PyTorch version beside it, reached
-through one operator namespace (``library.py``: ``torch.ops.caesar``)."""
+the tiles' mask paste, each a CUDA kernel with its plain PyTorch version
+beside it, reached through one operator namespace (``library.py``:
+``torch.ops.caesar``)."""
 
 from . import library  # noqa: F401  (registers the caesar operators)

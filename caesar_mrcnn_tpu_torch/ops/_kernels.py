@@ -118,6 +118,8 @@ def load(path) -> ctypes.CDLL:
     lib.caesar_quantize_int8.restype = _I
     lib.caesar_quantize_int8_pad.argtypes = [_P, _P, ctypes.c_longlong, _I, _I, _I, _F, _P]
     lib.caesar_quantize_int8_pad.restype = _I
+    lib.caesar_paste_masks.argtypes = [_P, _P] + [_I] * 6 + [_P, _I, _P]
+    lib.caesar_paste_masks.restype = _I
     return lib
 
 

@@ -21,8 +21,8 @@ the kernel on the card and the plain gradient on the CPU.
 
 The public wrappers (``nms.nms_padded``, ``roi_align.roi_align``,
 ``roi_align.roi_align_backward``, ``roi_align.crop_and_resize``,
-``quant.conv2d_int8``, ``quant.quantize_int8``) check shapes, dtypes and
-devices, then call :data:`ops`. The namespace is ``caesar`` for this
+``quant.conv2d_int8``, ``quant.quantize_int8``, ``paste.paste_masks``)
+check shapes, dtypes and devices, then call :data:`ops`. The namespace is ``caesar`` for this
 package; a copy of the port imported under another name (``kernel_bench
 --parent``) registers its own, named after it.
 """
@@ -37,6 +37,7 @@ import torch
 
 from . import _kernels
 from . import nms as N
+from . import paste as P
 from . import quant as Q
 from . import roi_align as R
 
@@ -224,6 +225,37 @@ def _crop_and_resize_fake(masks, boxes, assign, crop_size):
 
 _register("crop_and_resize(Tensor masks, Tensor boxes, Tensor assign, int[] crop_size) -> Tensor",
           _crop_and_resize_cpu, _crop_and_resize_cuda, _crop_and_resize_fake)
+
+
+# -------------------------------------------------------------- paste_masks
+
+
+def _paste_masks_cuda(detections, masks, frames, shape):
+    """The kernel of ``csrc/paste_masks.cu`` into each frame's address (the
+    device's, or pinned host memory's, which unified addressing maps)."""
+    detections, masks = detections.contiguous(), masks.contiguous()
+    b, d, mh, mw = masks.shape
+    ptrs = (ctypes.c_void_p * b)(*(f.data_ptr() for f in frames))
+    status = _kernels.library().caesar_paste_masks(
+        detections.data_ptr(), masks.data_ptr(), b, d, mh, mw, shape[0], shape[1], ptrs,
+        _sm_count(detections.device), _stream(detections),
+    )
+    _kernels.check(status, "caesar_paste_masks")
+    P.paste_masks.launches += -(-b // P.TILES_PER_LAUNCH)
+
+
+def _paste_masks_cpu(detections, masks, frames, shape):
+    P.paste_masks_plain(detections, masks, frames, tuple(shape))
+
+
+def _paste_masks_fake(detections, masks, frames, shape):
+    return None
+
+
+# frames: one flat bool tensor a tile, written in place (the first H * W * n
+# elements); on CUDA, in device memory or pinned host memory
+_register("paste_masks(Tensor detections, Tensor masks, Tensor(a!)[] frames, int[] shape) -> ()",
+          _paste_masks_cpu, _paste_masks_cuda, _paste_masks_fake)
 
 
 # -------------------------------------------------------------- quantize_int8

@@ -22,8 +22,12 @@ what they counted during the recording.
 The spans of the detect path (``inference/detector.py``,
 ``models/mask_rcnn.py::forward_inference``): ``detect.stage_in``,
 ``detect.step`` (its children ``detect.step.features``, ``.proposals``,
-``.heads``), ``detect.fetch``, ``detect.unmold``; counters
-``detect.unmold.resize_ns`` and ``detect.unmold.write_ns``. Of the tiled
+``.heads``; the masks' paste into the tiles' frames is launched in it,
+after them), ``detect.fetch``, ``detect.unmold``; counters
+``detect.unmold.resize_ns`` and ``detect.unmold.write_ns`` (the host
+paste), and ``detect.unmold.device_pasted`` (the detections that
+``caesar::paste_masks`` pasted on the tiled path: its kernel on a CUDA
+device). Of the tiled
 catalog (``analysis/sfinder.py::SFinder.run_tiled``): ``catalog.read`` (on
 the producer thread), ``catalog.wait``, ``catalog.sources``,
 ``catalog.gather``, ``catalog.merge``, ``catalog.save``.
@@ -119,11 +123,11 @@ def count(name: str, n: int = 1) -> None:
 
 def _launches() -> Dict[str, int]:
     """The kernel wrappers' launch counters, now."""
-    from .ops import nms, quant, roi_align
+    from .ops import nms, paste, quant, roi_align
 
     out = {f"launches.{f.__name__}": f.launches for f in (
         nms.nms_padded, roi_align.roi_align, roi_align.roi_align_backward, roi_align.crop_and_resize,
-        quant.quantize_int8, quant.conv2d_int8)}
+        quant.quantize_int8, quant.conv2d_int8, paste.paste_masks)}
     out.update({f"launches.conv2d_int8.{route}": n for route, n in quant.conv2d_int8.route_launches.items()})
     return out
 

@@ -1,6 +1,7 @@
 """Comparison of two detectors' per-image results that allows for near ties,
-of two source catalogs, the weights that make detectors comparable, and
-the kernel operators' ``opcheck`` cases (:func:`op_cases`).
+of two source catalogs, the weights that make detectors comparable, the
+kernel operators' ``opcheck`` cases (:func:`op_cases`) and the masks'
+paste's seeded inputs (:func:`paste_inputs`).
 
 Random weights make near-tied detection scores common, and two detectors
 whose arithmetic differs in the last bits (JAX against PyTorch, or the card
@@ -152,10 +153,12 @@ def op_cases(device) -> List[Tuple[str, object, tuple]]:
     """(label, operator, arguments) of every ``caesar`` operator at small
     seeded shapes on ``device``, for ``torch.library.opcheck``: NMS with
     invalid boxes, ROIAlign with levels that take a gradient, its backward,
-    the crop, the quantizer plain and padding 3 channels to 16, and the
-    int8 convolution's three epilogues (int32 sums, f32 with ReLU, int8 at
-    the next site's scale). Inputs are contiguous, as the wrappers pass
-    them, and 16-byte aligned, as the kernels take them."""
+    the crop, the quantizer plain and padding 3 channels to 16, the int8
+    convolution's three epilogues (int32 sums, f32 with ReLU, int8 at the
+    next site's scale), and the masks' paste into two tiles' frames (one
+    with a zero-area box and a zero class id, on ``device``). Inputs are
+    contiguous, as the wrappers pass them, and 16-byte aligned, as the
+    kernels take them."""
     from .ops.library import ops
 
     rng = np.random.RandomState(0)
@@ -175,7 +178,7 @@ def op_cases(device) -> List[Tuple[str, object, tuple]]:
     wq = t(rng.randint(-127, 128, (8, 3, 3, 16)).astype(np.int8))
     sw = t(rng.uniform(1e-4, 1e-3, 8).astype(np.float32))
     bias = t(rng.uniform(-1, 1, 8).astype(np.float32))
-    return [
+    cases = [
         ("nms", ops.nms.default, (boxes, t(scores), 4, 0.5)),
         ("roi_align", ops.roi_align.default, (levels, boxes, [64, 64], 3)),
         ("roi_align_backward", ops.roi_align_backward.default,
@@ -189,3 +192,36 @@ def op_cases(device) -> List[Tuple[str, object, tuple]]:
         ("conv2d_int8 f32", ops.conv2d_int8.default, (xq, wq, sw, bias, 2, [0, 1, 0, 1], True, None, None)),
         ("conv2d_int8 int8", ops.conv2d_int8.default, (xq, wq, sw, bias, 1, [1, 1, 1, 1], True, 0.05, None)),
     ]
+    dets = np.concatenate([boxes.cpu().numpy(), rng.randint(1, 4, (2, 6, 1)), rng.uniform(0, 1, (2, 6, 1))],
+                          -1).astype(np.float32)
+    dets[0, 1, 2] = dets[0, 1, 0]  # zero area
+    dets[1, 4:, 4] = 0  # four detections
+    frames = [torch.zeros(20 * 24 * 6, dtype=torch.bool, device=device) for _ in range(2)]
+    masks = t(rng.randint(0, 256, (2, 6, 28, 28)).astype(np.uint8))
+    return cases + [("paste_masks", ops.paste_masks.default, (t(dets), masks, frames, [20, 24]))]
+
+
+def paste_inputs(rng, b: int, d: int, shape) -> Tuple[np.ndarray, np.ndarray]:
+    """b tiles of d seeded detections [b, d, 6] f32 and u8 masks [b, d, 28,
+    28] on a tile of ``shape`` (H, W), for ``ops/paste.py``: boxes from a
+    few pixels to the whole tile (a quarter of the sides 0.4-1 of it, so
+    both of ATen's resize kernels, by out_h + out_w, are reached), some on
+    the tile's edges, a few of zero area, a tile with no detection, one
+    with all d, the rest padded after a random count."""
+    h, w = shape
+    y1, x1 = rng.uniform(0, 1, (2, b, d))
+    wide = rng.uniform(0, 1, (2, b, d)) < 0.25
+    side = np.where(wide, rng.uniform(0.4, 1.0, (2, b, d)), rng.uniform(0, 0.25, (2, b, d)))
+    boxes = np.stack([y1, x1, y1 + side[0], x1 + side[1]], -1).clip(0, 1)
+    boxes[:, ::11, 0] = boxes[:, 1::11, 1] = 0.0
+    boxes[:, 2::11, 2] = boxes[:, 3::11, 3] = 1.0
+    boxes[:, 4::17] = (0.0, 0.0, 1.0, 1.0)
+    boxes[:, 5::13, 2] = boxes[:, 5::13, 0] - 2.0 / (h - 1)  # dropped: no pixel rows
+    cls = rng.randint(1, 4, (b, d)).astype(np.float64)
+    for t in range(2, b):
+        cls[t, rng.randint(1, d + 1):] = 0
+    cls[0, 0] = 0
+    dets = np.concatenate([boxes, cls[..., None], rng.uniform(0, 1, (b, d, 1))], -1).astype(np.float32)
+    masks = rng.randint(0, 256, (b, d, 28, 28)).astype(np.uint8)
+    masks[:, ::3] = (masks[:, ::3] // 64) * 64 + 63  # flatter masks: long runs near one value
+    return dets, masks

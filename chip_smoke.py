@@ -26,12 +26,21 @@ Phases, one line each:
 4. slice: the tiled detect path (``Detector.dispatch_tiles`` / ``collect``,
    two batches in flight) over 16 tiles of 512^2 read from a seeded 2048^2
    FITS mosaic, at the flagship's full width (ResNet-101, FPN 256, batch 8,
-   bf16, 6000 pre-NMS / 1000 post-NMS / 100 detections);
+   bf16, 6000 pre-NMS / 1000 post-NMS / 100 detections): launches (2 NMS,
+   2 ROIAlign and 1 mask paste per batch); then the masks' paste kernel
+   (``ops/paste.py``) bit-equal to its plain version (the host unmold's
+   paste) at the path's shape (8 tiles of 512^2, 100 detections a tile),
+   on a batch of the slice's own detections, on seeded boxes of up to the
+   whole tile (``testing.paste_inputs``) and with every box the whole tile
+   (the in-box work's worst case), into pinned host frames (as
+   the path writes them) and into device frames: median times beside the
+   plain version's, the bound the kept frames' bytes written once over
+   PCIe 5.0 x16 (63 GB/s a direction) or over HBM;
 5. parity: one tile at f32 through the card's detector and the same
    detector on the CPU, where the plain versions run;
 6. catalog: the host layer, ``SFinder.run_tiled``, over the same mosaic
-   at the same width (16 tiles, batch 8, bf16): launches (2 NMS and 2
-   ROIAlign per batch), the catalog and DS9 file written and read back,
+   at the same width (16 tiles, batch 8, bf16): launches (2 NMS, 2
+   ROIAlign and 1 mask paste per batch), the catalog and DS9 file written and read back,
    sources, merged and edge sources; then a timed second run: wall
    seconds, tiles/s, the detector's share (dispatch, wait, unmold) and
    SFinder's own host steps (per-tile analysis, merge, source parameters,
@@ -193,7 +202,10 @@ NO_LIBRARY = {
                    "has no int8 convolution on CUDA for the others",
     "quantize_int8": "none: torch.quantize_per_tensor multiplies by the reciprocal of the scale and clips to "
                      "[-128, 127]; the JAX graph divides and clips to +-127",
+    "paste_masks": "none: F.interpolate takes one output size a call and every detection has its own box, and no "
+                   "PyTorch call writes a device result into pinned host memory",
 }
+PCIE_BYTES_PER_S = 63.0e9  # PCIe 5.0 x16, one direction: the paste's frames in pinned host memory
 
 
 def share(bound_ms: float, ms: float) -> str:
@@ -725,11 +737,12 @@ def run_pass(det, tiles: np.ndarray, depth: int = 2):
     return results
 
 
-def check_slice(card_name: str) -> dict:
+def check_slice(card_name: str) -> tuple:
     import torch
 
     from caesar_mrcnn_tpu_torch.inference.detector import build_detector
     from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
+    from caesar_mrcnn_tpu_torch.ops.paste import paste_masks
     from caesar_mrcnn_tpu_torch.ops.roi_align import roi_align
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -744,11 +757,12 @@ def check_slice(card_name: str) -> dict:
     batches = len(tiles) // cfg.batch_size
 
     torch.cuda.reset_peak_memory_stats()
-    nms_padded.launches = roi_align.launches = 0
+    nms_padded.launches = roi_align.launches = paste_masks.launches = 0
     results = run_pass(det, tiles)
-    launches = {"nms": nms_padded.launches, "roi_align": roi_align.launches}
-    if launches != {"nms": 2 * batches, "roi_align": 2 * batches}:
-        raise AssertionError(f"kernel launches on the main path {launches}, expected 2 per batch x {batches}")
+    launches = {"nms": nms_padded.launches, "roi_align": roi_align.launches, "paste_masks": paste_masks.launches}
+    if launches != {"nms": 2 * batches, "roi_align": 2 * batches, "paste_masks": batches}:
+        raise AssertionError(f"kernel launches on the main path {launches}, expected 2, 2 and 1 per batch x "
+                             f"{batches}")
     for r in results:
         n = len(r["class_ids"])
         if r["masks"].shape != (512, 512, n) or r["rois"].shape != (n, 4):
@@ -772,7 +786,78 @@ def check_slice(card_name: str) -> dict:
           f"ResNet-101 batch 8 bf16, launches {launches}; detections per tile {counts} [{card_name}]")
     print(f"slice: timed third pass {len(tiles) / dt:.2f} img/s (dispatch/collect with unmold, tiles pre-read), "
           f"peak device memory {peak / 2**30:.2f} GiB [{card_name}]")
-    return launches
+    detections, masks = det.fetch(det.dispatch_tiles(tiles[:cfg.batch_size]))[:2]
+    return launches, (detections, masks)
+
+
+def paste_against_plain(rec: dict, detections, masks, where: str, label: str, card_name: str) -> None:
+    """The paste kernel's frames (``where``: pinned host memory, as the
+    detect path writes them, or the device) bit-equal to the plain
+    version's, then timed; its bound, the kept frames' bytes written once,
+    over PCIe into pinned memory or over HBM into device memory."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch import kernel_bench as kb
+    from caesar_mrcnn_tpu_torch.ops import paste as P
+
+    b, d = detections.shape[:2]
+    shape = (512, 512)
+    hw = shape[0] * shape[1]
+    size = hw * d
+    cuda_dets, cuda_masks = torch.from_numpy(detections).cuda(), torch.from_numpy(masks).cuda()
+    frames = [torch.empty(size, dtype=torch.bool, pin_memory=True) if where == "pinned"
+              else torch.empty(size, dtype=torch.bool, device="cuda") for _ in range(b)]
+    ref = [torch.empty(size, dtype=torch.bool) for _ in range(b)]
+    cpu_dets, cpu_masks = torch.from_numpy(detections), torch.from_numpy(masks)
+
+    def kernel():
+        P.paste_masks(cuda_dets, cuda_masks, frames, shape)
+
+    def plain():
+        P.paste_masks(cpu_dets, cpu_masks, ref, shape)
+
+    kernel()
+    plain()
+    torch.cuda.synchronize()
+    kept = [P.kept_boxes(tile, shape)[1] for tile in detections]
+    n = sum(len(boxes) for boxes in kept)
+    bad = sum(int((frames[t][:len(k) * hw].cpu() != ref[t][:len(k) * hw]).sum()) for t, k in enumerate(kept))
+    if bad:
+        raise AssertionError(f"paste_masks {label}, {where} frames: {bad} frame bytes differ from the plain version")
+    ms = kb.median_ms(kernel, kb.REPS)
+    host = []
+    for _ in range(3):
+        t = time.perf_counter()
+        plain()
+        host.append(1e3 * (time.perf_counter() - t))
+    plain_ms = statistics.median(host)
+    nbytes = n * hw
+    bound = (1e3 * nbytes / (PCIE_BYTES_PER_S if where == "pinned" else kb.PEAK_BYTES_PER_S), "bytes")
+    area = statistics.mean(float(((k[:, 2] - k[:, 0]) * (k[:, 3] - k[:, 1])).mean()) / hw for k in kept if len(k))
+    print(f"kernels: paste_masks {label} B={b} {shape[0]}^2 D={d}, {n} kept (mean box {100 * area:.2f}% of the "
+          f"tile), frames in {'pinned host' if where == 'pinned' else 'device'} memory: bit-equal; kernel {ms:.3f} ms "
+          f"({nbytes / ms / 1e6:.1f} GB/s of frames), plain {plain_ms:.1f} ms (median of 3, the CPU); "
+          f"{share(bound[0], ms)} (bytes over {'PCIe 5.0 x16' if where == 'pinned' else 'HBM'}) [{card_name}]")
+    _add(rec, 0.0, ms, plain_ms, bound)
+
+
+def check_paste_masks(rng, path_batch, card_name: str) -> dict:
+    """The masks' paste at the tiled detect path's shape (8 tiles of 512^2,
+    100 detections a tile): a batch of the slice's own detections, seeded
+    boxes up to the whole tile, and every detection's box the whole tile,
+    each into pinned and device frames."""
+    from caesar_mrcnn_tpu_torch.testing import paste_inputs
+
+    rec = _record()
+    seeded = paste_inputs(rng, 8, 100, (512, 512))
+    whole = seeded[0].copy()
+    whole[..., :4] = (0.0, 0.0, 1.0, 1.0)
+    whole[..., 4] = 1.0
+    for label, (detections, masks) in (("slice batch", path_batch), ("seeded wide boxes", seeded),
+                                       ("tile-wide boxes", (whole, seeded[1]))):
+        for where in ("pinned", "device"):
+            paste_against_plain(rec, detections, masks, where, label, card_name)
+    return rec
 
 
 def check_parity(card_name: str) -> None:
@@ -931,6 +1016,7 @@ def check_catalog(card_name: str) -> dict:
 
     from caesar_mrcnn_tpu_torch.inference.detector import build_detector
     from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
+    from caesar_mrcnn_tpu_torch.ops.paste import paste_masks
     from caesar_mrcnn_tpu_torch.ops.roi_align import roi_align
     from caesar_mrcnn_tpu_torch.utils.tiles import generate_tiles
 
@@ -946,11 +1032,11 @@ def check_catalog(card_name: str) -> dict:
         path = os.path.join(tmp, "mosaic.fits")
         write_mosaic(path, n)
         torch.cuda.synchronize()
-        nms_padded.launches = roi_align.launches = 0
+        nms_padded.launches = roi_align.launches = paste_masks.launches = 0
         sources, catalog, regions, _, _ = run_catalog(det, cfg, path, os.path.join(tmp, "catalog"))
-        launches = {"nms": nms_padded.launches, "roi_align": roi_align.launches}
-        if launches != {"nms": 2 * batches, "roi_align": 2 * batches}:
-            raise AssertionError(f"catalog launches {launches}, expected 2 per batch x {batches}")
+        launches = {"nms": nms_padded.launches, "roi_align": roi_align.launches, "paste_masks": paste_masks.launches}
+        if launches != {"nms": 2 * batches, "roi_align": 2 * batches, "paste_masks": batches}:
+            raise AssertionError(f"catalog launches {launches}, expected 2, 2 and 1 per batch x {batches}")
         no_polygon = check_catalog_files(sources, catalog, regions, n, n)
         timed = TimedDetector(det)
         _, again, _, wall, spans = run_catalog(timed, cfg, path, os.path.join(tmp, "timed"))
@@ -3054,7 +3140,8 @@ def main() -> None:
     conv8, conv8_library = check_conv_int8(dev, card_name)
     quant8 = check_quantize_int8(dev, rng, card_name)
     torch.cuda.empty_cache()
-    detect = check_slice(card_name)
+    detect, path_batch = check_slice(card_name)
+    paste = check_paste_masks(rng, path_batch, card_name)
     check_parity(card_name)
     catalog = check_catalog(card_name)
     check_catalog_parity(card_name)
@@ -3106,6 +3193,7 @@ def main() -> None:
          "library_sites": conv8_library["sites"], "ms_at_library_sites": conv8_library["kernel_ms"],
          "ms_previous_route": conv8["previous_ms"], "serving_routes": serving_routes},
         record("quantize_int8", "conv_int8.cu", "caesar_mrcnn_tpu/models/backbone_int8.py:272", quant8),
+        record("paste_masks", "paste_masks.cu", "caesar_mrcnn_tpu/inference/detector.py:186", paste),
     ]
     print(card_name)
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,7 @@ with the classifier's bias set to ``[0, 0, 6, 0]``, carried to the port by
   recording is off);
 * the sidecar, partial batches, the size and count checks, the zero-area
   drop, the refusal of an int8 detector with no int8 graph, and
-  ``torch.library.opcheck`` of the six operators;
+  ``torch.library.opcheck`` of the seven operators;
 * a ``ServingDetector`` in a subprocess with the model code
   (``caesar_mrcnn_tpu_torch.models``, ``.config``, ``.weights``), jax and
   the JAX package blocked from import.
