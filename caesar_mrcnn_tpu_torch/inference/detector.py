@@ -170,13 +170,25 @@ class Detector:
                                   torch.from_numpy(metas).to(self.device), anchors)
 
     def _quantize_molded(self, molded: torch.Tensor, metas: torch.Tensor, anchors: torch.Tensor) -> None:
+        """Fold the detect graph's batch norms, calibrate it on ``molded``,
+        quantize it and run it: the span ``detect.int8.calibrate``, with
+        ``.observe`` (the folded f32 pass that sees every site's input) and
+        ``.quantize`` (the tree quantized and put on the device), and the
+        counter ``detect.int8.sites`` (the tree's sites)."""
         from ..models import heads_int8 as Q
 
-        self.use_qtree(Q.build_detect_qtree(self.model, molded, metas, anchors))
+        with telemetry.span("detect.int8.calibrate"):
+            folded = Q.fold_detect(W.state_dict_to_flax(self.model.state_dict()), self.model.config)
+            with telemetry.span("detect.int8.calibrate.observe"):
+                scales = Q.calibrate_detect(self.model, folded, molded, metas, anchors)
+            with telemetry.span("detect.int8.calibrate.quantize"):
+                qtree = Q.quantize_detect(folded, scales)
+                self.use_qtree(qtree)
+            telemetry.count("detect.int8.sites", len(qtree))
 
     def use_qtree(self, qtree: Dict) -> None:
         """Run the int8 graph of ``qtree`` (a numpy quantized tree in the JAX
-        package's layout: ``heads_int8.build_detect_qtree``'s, or one from
+        package's layout: ``heads_int8.quantize_detect``'s, or one from
         another detector with the same weights)."""
         from ..models import heads_int8 as Q
 

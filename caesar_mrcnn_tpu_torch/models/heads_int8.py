@@ -204,10 +204,3 @@ def calibrate_detect(model, folded, molded, image_metas, anchors, batch: Optiona
             forward_inference(stages, molded[i:i + batch].to(dev), metas[i:i + batch].to(dev), anchors,
                               rpn_std, bbox_std)
     return {site: max(float(v), 1e-12) / 127.0 for site, v in maxabs.items()}
-
-
-def build_detect_qtree(model, molded, image_metas, anchors) -> Dict[str, Dict[str, np.ndarray]]:
-    """fold + calibrate + quantize the whole detect graph of ``model``
-    (numpy tree, the JAX package's layout)."""
-    folded = fold_detect(W.state_dict_to_flax(model.state_dict()), model.config)
-    return quantize_detect(folded, calibrate_detect(model, folded, molded, image_metas, anchors))

@@ -27,7 +27,9 @@ after them), ``detect.fetch``, ``detect.unmold``; counters
 ``detect.unmold.resize_ns`` and ``detect.unmold.write_ns`` (the host
 paste), and ``detect.unmold.device_pasted`` (the detections that
 ``caesar::paste_masks`` pasted on the tiled path: its kernel on a CUDA
-device). Of the tiled
+device). Of the int8 graph's calibration (``Detector._quantize_molded``):
+``detect.int8.calibrate`` and its children ``.observe`` and ``.quantize``,
+and the counter ``detect.int8.sites``. Of the tiled
 catalog (``analysis/sfinder.py::SFinder.run_tiled``): ``catalog.read`` (on
 the producer thread), ``catalog.wait``, ``catalog.sources``,
 ``catalog.gather``, ``catalog.merge``, ``catalog.save``.

@@ -11,7 +11,9 @@ seven readers) on hand-made records and trace events.
   batch, the unmold's counters (the tiled path's pasted detections, the
   host paste's two timed halves in ``detect``), self times, spans
   on another thread, the wrappers' launch counts, the tiled catalog's
-  spans through ``detect --telemetry``;
+  spans through ``detect --telemetry``, the int8 graph's calibration
+  spans once a calibration with its sites counted (none on the float
+  path);
 * under a CPU ``torch.profiler`` each span is a ``user_annotation`` event.
 """
 
@@ -118,6 +120,46 @@ def test_detect_path_spans_parents_and_batch_ids(det):
     assert c["detect.unmold.device_pasted"] == sum(len(r["scores"]) for r in results) > 0
     assert "detect.unmold.resize_ns" not in c and "detect.unmold.write_ns" not in c
     json.dumps(summary)
+
+
+INT8 = ("detect.int8.calibrate", "detect.int8.calibrate.observe", "detect.int8.calibrate.quantize")
+
+
+def test_int8_calibration_spans_once_and_counts_the_sites():
+    """The int8 graph's calibration: ``detect.int8.calibrate`` and its two
+    children once a calibration (the first batch calibrates, the next does
+    not, a batch after the weights changed calibrates again), under the
+    calibrating batch's ``detect.step``; ``detect.int8.sites`` counts the
+    quantized tree's sites each time."""
+    cfg = inference_config(detector_config(**KW, quant_mode="int8"), images_per_device=2, num_devices=1)
+    det8 = build_detector(cfg, device="cpu", seed=0)
+    with telemetry.recording() as rec:
+        det8.collect(det8.dispatch_tiles(_tiles(5)))
+        det8.collect(det8.dispatch_tiles(_tiles(6)))
+    summary = rec.summary()
+    assert {name: summary["spans"][name]["calls"] for name in INT8} == dict.fromkeys(INT8, 1)
+    parents = {s.name: s.parent.name for s in rec.spans if s.name in INT8}
+    assert parents == {"detect.int8.calibrate": "detect.step", "detect.int8.calibrate.observe": "detect.int8.calibrate",
+                       "detect.int8.calibrate.quantize": "detect.int8.calibrate"}
+    assert summary["counters"]["detect.int8.sites"] == len(det8.qtree) == 60
+    observe = next(s for s in rec.spans if s.name == "detect.int8.calibrate.observe")
+    folded_pass = [s.name for s in rec.spans if s.parent is observe]
+    assert folded_pass == ["detect.step.features", "detect.step.proposals", "detect.step.heads"]
+    with torch.no_grad():
+        det8.model.fpn.fpn_p2.bias.add_(0.0)  # a write in place: the int8 graph is dropped
+    with telemetry.recording() as rec:
+        det8.collect(det8.dispatch_tiles(_tiles(7)))
+    summary = rec.summary()
+    assert {name: summary["spans"][name]["calls"] for name in INT8} == dict.fromkeys(INT8, 1)
+    assert summary["counters"]["detect.int8.sites"] == 60
+
+
+def test_the_float_path_records_no_calibration(det):
+    with telemetry.recording() as rec:
+        det.collect(det.dispatch_tiles(_tiles(8)))
+    summary = rec.summary()
+    assert not set(INT8) & set(summary["spans"]) and "detect.int8.sites" not in summary["counters"]
+    assert "detect.step" in summary["spans"]
 
 
 def test_self_time_threads_and_nesting():
