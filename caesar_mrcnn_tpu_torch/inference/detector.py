@@ -29,6 +29,10 @@ follow the first device's model whenever its weights change, and the int8
 graph is calibrated once, on the first device over the global batch as
 the one-device detector calibrates, each replica running the same
 quantized tree.
+
+On a CUDA device the float graph's feature stage (backbone and FPN) runs
+as one CUDA graph a device (``inference/graphed.py``), captured in the
+first step; the int8 graph, and any graph on the CPU, run eagerly.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from ..parallel.mesh import local_devices, shard_rows
 from ..utils import boxes as B
 from ..utils import image as I
 from ..utils.anchors import get_anchors
+from . import graphed as G
 
 log = logging.getLogger(__name__)
 
@@ -81,6 +86,7 @@ class Detector:
         self._stages = None  # the int8 graph (heads_int8.DetectStages)
         self._replica_stages = None  # the other devices' int8 graphs
         self._stages_version = None  # the weights' version it was quantized from
+        self._graphed = {}  # device index -> its model's GraphedFeatures
         self._batch_ids = itertools.count()  # the id of each batch, carried by its handle and its spans
         self._pasting = collections.deque()  # (events, frames) of batches the device may still write
 
@@ -118,9 +124,16 @@ class Detector:
         return self._models
 
     def _graph(self, index: int):
-        """Device ``index``'s detect graph: its model, or its int8 graph."""
+        """Device ``index``'s detect graph: its model, that model with its
+        features replayed as a CUDA graph (``graphed.engages``), or its
+        int8 graph."""
         models = self._replicas()
-        if self.int8_graph() is None:
+        stages = self.int8_graph()
+        if G.engages(self.devices[index], stages):
+            if index not in self._graphed:
+                self._graphed[index] = G.GraphedFeatures(models[index])
+            return self._graphed[index]
+        if stages is None:
             return models[index]
         if index == 0:
             return self._stages

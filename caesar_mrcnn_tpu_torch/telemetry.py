@@ -29,10 +29,12 @@ paste), and ``detect.unmold.device_pasted`` (the detections that
 ``caesar::paste_masks`` pasted on the tiled path: its kernel on a CUDA
 device). Of the int8 graph's calibration (``Detector._quantize_molded``):
 ``detect.int8.calibrate`` and its children ``.observe`` and ``.quantize``,
-and the counter ``detect.int8.sites``. Of the tiled
-catalog (``analysis/sfinder.py::SFinder.run_tiled``): ``catalog.read`` (on
-the producer thread), ``catalog.wait``, ``catalog.sources``,
-``catalog.gather``, ``catalog.merge``, ``catalog.save``.
+and the counter ``detect.int8.sites``. Of the float graph's features
+replayed as a CUDA graph (``inference/graphed.py``): the counters
+``detect.features.graph_captures`` and ``detect.features.graph_replays``.
+Of the tiled catalog (``analysis/sfinder.py::SFinder.run_tiled``):
+``catalog.read`` (on the producer thread), ``catalog.wait``,
+``catalog.sources``, ``catalog.gather``, ``catalog.merge``, ``catalog.save``.
 """
 
 from __future__ import annotations
