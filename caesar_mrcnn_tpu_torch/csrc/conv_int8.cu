@@ -24,25 +24,17 @@
 // each site). The quantizer reads 2 or 4 bytes and writes 1 per element:
 // bound by memory.
 //
-// Two routes, chosen by shape before the launch (ops/quant.py::conv_plan),
-// never one after the other's failure:
+// One kernel (namespace hop below) runs every convolution: warp-specialized
+// wgmma with a TMA and cp.async ring, split-K for the small grids, and an
+// epilogue that can requantize for the next convolution, so 70 of the 123
+// quantizer passes of a batch are gone. It takes 16 | Cin and 16-byte
+// aligned tensors; ops/quant.py::hopper_operands pads and copies any other
+// operands to that (a no-op at every serving site: the stem's image is
+// quantized with its 3 channels padded to 16 by the padding quantizer at
+// the end, and its weights are padded once when the graph is built, which
+// adds 0 x w products only).
 //
-// * The Hopper route (namespace hop below, every site of the serving
-//   graph): warp-specialized wgmma with a TMA and cp.async ring, split-K
-//   for the small grids, and an epilogue that can requantize for the next
-//   convolution, so 70 of the 123 quantizer passes of a batch are gone.
-//   It takes 16 | Cin and 16-byte aligned tensors; the stem's image is
-//   quantized with its 3 channels padded to 16 (the padding quantizer at
-//   the end), which adds 0 x w products only.
-// * The mma.sync route for every other shape: an implicit GEMM on
-//   mma.sync.m16n8k32. A block of 256 threads (8 warps, 2 x 4) computes a
-//   128 x 128 tile of the output, each warp 64 x 32, stepping through K 64
-//   bytes at a time with two cp.async stages in shared memory; 16-byte
-//   chunks where 16 divides Cin, byte loads otherwise (any Cin, unaligned
-//   inputs). Shared rows are 80 bytes, so a warp's 32-bit fragment reads
-//   hit 32 distinct banks.
-//
-// Both compute M = B Ho Wo output pixels, N = Cout, K = kh kw Cin in (ky,
+// It computes M = B Ho Wo output pixels, N = Cout, K = kh kw Cin in (ky,
 // kx, ci) order, the order of the packed weights [Cout, kh, kw, Cin]. A row
 // m is the pixel (b, oy, ox), column k the tap (ky, kx) and channel ci, read
 // at (oy * stride - pad_top + ky, ox * stride - pad_left + kx); taps in the
@@ -70,26 +62,9 @@
 
 namespace {
 
-constexpr int kBM = 128;        // output pixels per block
-constexpr int kBN = 128;        // output channels per block
-constexpr int kBK = 64;         // bytes of K per stage
-constexpr int kRow = kBK + 16;  // shared row pitch: 80 bytes, conflict-free fragment reads
-constexpr int kThreads = 256;
-
-// Epilogue modes, of both kernels: the raw int32 sums (the checks), f32
-// acc * sw + b (+ ReLU), or that f32 value requantized by the next site's
-// quantizer, int8.
+// Epilogue modes: the raw int32 sums (the checks), f32 acc * sw + b (+
+// ReLU), or that f32 value requantized by the next site's quantizer, int8.
 enum Mode { kRaw = 0, kF32 = 1, kQ8 = 2 };
-
-struct ConvArgs {
-  const int8_t* x;  // [B, H, W, C]
-  const int8_t* w;  // [Cout, k, k, C]
-  const float* sw;  // [Cout]
-  const float* b;   // [Cout]
-  void* out;        // [B, Ho, Wo, Cout]: int32 sums, f32, or int8 (Mode)
-  int h, w_, c, ho, wo, cout, k, stride, pt, pl, m, kdim, relu, mode;
-  float s_next;     // kQ8: the next site's input scale
-};
 
 __device__ __forceinline__ int8_t q8(float v, float s) {
   const float r = rintf(__fdiv_rn(v, s));
@@ -108,214 +83,9 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One stage of A (128 pixels x 64 bytes of K) and B (128 channels x 64
-// bytes) with 16-byte cp.async: each thread two chunks of each, all at the
-// same k (16 divides Cin, so a chunk never crosses a tap).
-__device__ __forceinline__ void load_stage_vec(const ConvArgs& p, int8_t* as, int8_t* bs, int k0, int m0,
-                                               int n0, const int8_t* const* arow, const int* iy0,
-                                               const int* ix0) {
-  const int tid = threadIdx.x;
-  const int col = (tid & 3) * 16;
-  const int k = k0 + col;
-  const bool kval = k < p.kdim;
-  int ky = 0, kx = 0, ci = 0;
-  if (kval) {
-    const int tap = k / p.c;
-    ci = k - tap * p.c;
-    ky = tap / p.k;
-    kx = tap - ky * p.k;
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = (tid >> 2) + 64 * i;
-    const int iy = iy0[i] + ky, ix = ix0[i] + kx;
-    const bool ok = kval && arow[i] != nullptr && (unsigned)iy < (unsigned)p.h && (unsigned)ix < (unsigned)p.w_;
-    const int8_t* src = ok ? arow[i] + ((size_t)iy * p.w_ + ix) * p.c + ci : p.x;
-    cp_async16(as + row * kRow + col, src, ok);
-    const int n = n0 + row;
-    const bool okb = kval && n < p.cout;
-    cp_async16(bs + row * kRow + col, okb ? p.w + (size_t)n * p.kdim + k : p.w, okb);
-  }
-}
-
-// The same stage byte by byte, for any Cin: each thread one column of K
-// and 32 rows of A and of B.
-__device__ __forceinline__ void load_stage_bytes(const ConvArgs& p, int8_t* as, int8_t* bs, int k0, int m0,
-                                                 int n0) {
-  const int tid = threadIdx.x;
-  const int col = tid & 63;
-  const int k = k0 + col;
-  const bool kval = k < p.kdim;
-  int ky = 0, kx = 0, ci = 0;
-  if (kval) {
-    const int tap = k / p.c;
-    ci = k - tap * p.c;
-    ky = tap / p.k;
-    kx = tap - ky * p.k;
-  }
-  const int plane = p.ho * p.wo;
-  for (int j = 0; j < kBM / 4; ++j) {
-    const int row = (tid >> 6) + 4 * j;
-    const int m = m0 + row;
-    int8_t v = 0;
-    if (kval && m < p.m) {
-      const int img = m / plane;
-      const int r = m - img * plane;
-      const int oy = r / p.wo;
-      const int iy = oy * p.stride - p.pt + ky;
-      const int ix = (r - oy * p.wo) * p.stride - p.pl + kx;
-      if ((unsigned)iy < (unsigned)p.h && (unsigned)ix < (unsigned)p.w_) {
-        v = p.x[(((size_t)img * p.h + iy) * p.w_ + ix) * p.c + ci];
-      }
-    }
-    as[row * kRow + col] = v;
-    const int n = n0 + row;
-    bs[row * kRow + col] = (kval && n < p.cout) ? p.w[(size_t)n * p.kdim + k] : (int8_t)0;
-  }
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads) conv_int8_kernel(const ConvArgs p) {
-  __shared__ __align__(16) int8_t As[2][kBM * kRow];
-  __shared__ __align__(16) int8_t Bs[2][kBN * kRow];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm * 64, columns wn * 32
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-
-  // the two pixels whose A chunks this thread loads (vector path)
-  const int8_t* arow[2] = {nullptr, nullptr};
-  int iy0[2] = {0, 0}, ix0[2] = {0, 0};
-  if (VEC) {
-    const int plane = p.ho * p.wo;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = m0 + (tid >> 2) + 64 * i;
-      if (m < p.m) {
-        const int img = m / plane;
-        const int r = m - img * plane;
-        const int oy = r / p.wo;
-        arow[i] = p.x + (size_t)img * p.h * p.w_ * p.c;
-        iy0[i] = oy * p.stride - p.pt;
-        ix0[i] = (r - oy * p.wo) * p.stride - p.pl;
-      }
-    }
-  }
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
-
-  const int nk = (p.kdim + kBK - 1) / kBK;
-  if (VEC) {
-    load_stage_vec(p, As[0], Bs[0], 0, m0, n0, arow, iy0, ix0);
-  } else {
-    load_stage_bytes(p, As[0], Bs[0], 0, m0, n0);
-  }
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      if (VEC) {
-        load_stage_vec(p, As[st ^ 1], Bs[st ^ 1], (kt + 1) * kBK, m0, n0, arow, iy0, ix0);
-      } else {
-        load_stage_bytes(p, As[st ^ 1], Bs[st ^ 1], (kt + 1) * kBK, m0, n0);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int8_t* as = As[st];
-    const int8_t* bs = Bs[st];
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* r0 = as + (wm * 64 + mi * 16 + g) * kRow + kk + t * 4;
-        a[mi][0] = ld32(r0);
-        a[mi][1] = ld32(r0 + 8 * kRow);
-        a[mi][2] = ld32(r0 + 16);
-        a[mi][3] = ld32(r0 + 8 * kRow + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* r0 = bs + (wn * 32 + ni * 8 + g) * kRow + kk + t * 4;
-        b[ni][0] = ld32(r0);
-        b[ni][1] = ld32(r0 + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: the accumulator of (row g [+ 8], columns 2t, 2t + 1) of each
-  // 16 x 8 tile
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + mi * 16 + g + 8 * h;
-      if (row >= p.m) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int n = n0 + wn * 32 + ni * 8 + 2 * t + j;
-          if (n >= p.cout) continue;
-          const int v = acc[mi][ni][2 * h + j];
-          const size_t o = (size_t)row * p.cout + n;
-          if (p.mode == kRaw) {
-            static_cast<int*>(p.out)[o] = v;
-          } else if (p.mode == kF32) {
-            static_cast<float*>(p.out)[o] = dequant(v, p.sw[n], p.b[n], p.relu);
-          } else {
-            static_cast<int8_t*>(p.out)[o] = q8(dequant(v, p.sw[n], p.b[n], p.relu), p.s_next);
-          }
-        }
-      }
-    }
-  }
-}
-
-template <bool VEC>
-int launch_conv(const ConvArgs& p, cudaStream_t s) {
-  const dim3 grid((p.m + kBM - 1) / kBM, (p.cout + kBN - 1) / kBN);
-  conv_int8_kernel<VEC><<<grid, kThreads, 0, s>>>(p);
-  return (int)cudaGetLastError();
-}
-
 // ------------------------------------------------ Hopper main loop (wgmma)
 //
-// The same implicit GEMM on Hopper's own path. A block of three warpgroups
+// The implicit GEMM. A block of three warpgroups
 // computes 128 x BN tiles (BN 64, 128 or 256, chosen per site by
 // ops/quant.py::conv_plan): warpgroups 0 and 1 consume, 64 rows each, with
 // wgmma.mma_async m64nBNk32 s8 x s8 -> s32 from shared memory; warpgroup 2
@@ -891,28 +661,6 @@ int launch_quantize_pad(const void* x, void* q, long long npix, int c_in, int c_
 
 }  // namespace
 
-// x [B, H, W, C] int8, w [Cout, k, k, C] int8; out [B, Ho, Wo, Cout]:
-// mode 0 the int32 sums (sw and b unread), 1 f32 acc * sw + b (ReLU if
-// relu), 2 that value quantized at s_next (int8). vec: 16-byte loads (16
-// divides C; x and w 16-byte aligned), else byte loads. The mma.sync
-// kernel: the route of the shapes the Hopper path does not take.
-extern "C" int caesar_conv2d_int8(const void* x, const void* w, const void* sw, const void* b, void* out,
-                                  int batch, int h, int wd, int c, int ho, int wo, int cout, int k,
-                                  int stride, int pt, int pl, int relu, int mode, float s_next, int vec,
-                                  void* stream) {
-  const long long m = (long long)batch * ho * wo;
-  const long long kdim = (long long)k * k * c;
-  if (batch < 1 || h < 1 || wd < 1 || c < 1 || ho < 1 || wo < 1 || cout < 1 || k < 1 || stride < 1 ||
-      m >= (1LL << 31) || kdim >= (1LL << 31) || (vec && c % 16 != 0) || mode < kRaw || mode > kQ8) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const ConvArgs p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), static_cast<const float*>(sw),
-                   static_cast<const float*>(b), out, h, wd, c, ho, wo, cout, k, stride, pt, pl, (int)m,
-                   (int)kdim, relu, mode, s_next};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? launch_conv<true>(p, s) : launch_conv<false>(p, s);
-}
-
 // The TMA descriptor of packed weights w, [cout, kdim] int8 (16 | kdim, w
 // 16-byte aligned), in boxes of 128 bytes of K by bn rows, 128-byte
 // swizzled, zero filled past K and Cout: 128 bytes written to map. 0, or
@@ -937,11 +685,13 @@ extern "C" int caesar_conv_int8_weight_map(void* map, const void* w, int kdim, i
   return 0;
 }
 
-// The Hopper route: x as above with 16 | C, 16-byte aligned; map from
-// caesar_conv_int8_weight_map at this bn; mode as caesar_conv2d_int8; at
-// most sms blocks (the card's SMs). With splits > 1, ws holds splits x
-// tiles x 128 x bn int32 and counters one zeroed int per output tile (left
-// zeroed).
+// x [B, H, W, C] int8 with 16 | C, 16-byte aligned; map from
+// caesar_conv_int8_weight_map at this bn (the packed weights [Cout, k, k,
+// C]); out [B, Ho, Wo, Cout]: mode 0 the int32 sums (sw and b unread), 1
+// f32 acc * sw + b (ReLU if relu), 2 that value quantized at s_next
+// (int8); at most sms blocks (the card's SMs). With splits > 1, ws holds
+// splits x tiles x 128 x bn int32 and counters one zeroed int per output
+// tile (left zeroed).
 extern "C" int caesar_conv2d_int8_wgmma(const void* x, const void* map, const void* sw, const void* b, void* out,
                                         void* ws, void* counters, int batch, int h, int wd, int c, int ho, int wo,
                                         int cout, int k, int stride, int pt, int pl, int relu, int mode,

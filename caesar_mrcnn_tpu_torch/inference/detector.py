@@ -26,9 +26,9 @@ device): ``dispatch_tiles`` and ``detect`` cut the batch into contiguous
 per-device slices and enqueue each replica's step on its own device, with
 nothing read back in between; ``collect`` joins the slices. The replicas
 follow the first device's model whenever its weights change, and the int8
-graph is calibrated once, on the first device over the global batch as
-the one-device detector calibrates, each replica running the same
-quantized tree.
+graph is calibrated once, on the first device over the global batch's
+real images (as on one device), each replica running the same quantized
+tree.
 
 On a CUDA device the float graph's feature stage (backbone and FPN) runs
 as one CUDA graph a device (``inference/graphed.py``), captured in the
@@ -124,11 +124,16 @@ class Detector:
         return self._models
 
     def _graph(self, index: int):
-        """Device ``index``'s detect graph: its model, that model with its
-        features replayed as a CUDA graph (``graphed.engages``), or its
-        int8 graph."""
+        """Device ``index``'s detect graph: its int8 graph, its model with
+        its features replayed as a CUDA graph (``graphed.engages``), or its
+        model. An int8 detector without an int8 graph for the current
+        weights raises: :meth:`_run_slices` and :meth:`quantize` calibrate
+        one."""
         models = self._replicas()
         stages = self.int8_graph()
+        if stages is None and self.config.quant_mode == "int8":
+            raise RuntimeError("quant_mode='int8' but no int8 graph for the current weights: calibrate first "
+                               "(Detector.quantize, or the first batch of detect or dispatch_tiles)")
         if G.engages(self.devices[index], stages):
             if index not in self._graphed:
                 self._graphed[index] = G.GraphedFeatures(models[index])
@@ -144,14 +149,9 @@ class Detector:
         return self._replica_stages[index - 1]
 
     @torch.inference_mode()
-    def _step(self, molded: torch.Tensor, metas: torch.Tensor, anchors: torch.Tensor, n_in: int,
-              index: int = 0):
-        """The detect graph of device ``index`` on its batch; in int8 mode,
-        calibrated first on its ``n_in`` real images when there is no int8
-        graph for the current weights (over several devices the caller
-        calibrates on the global batch first)."""
-        if self.int8_graph() is None and self.config.quant_mode == "int8":
-            self._quantize_molded(molded[:n_in], metas[:n_in], anchors)
+    def _step(self, molded: torch.Tensor, metas: torch.Tensor, anchors: torch.Tensor, index: int = 0):
+        """The detect graph of device ``index`` (:meth:`_graph`) on its
+        batch."""
         return forward_inference(self._graph(index), molded, metas, anchors, *self._consts_of[index][:2])
 
     # ------------------------------------------------------- quantization
@@ -260,16 +260,12 @@ class Detector:
         # Pasting into one preallocated [H, W, n] frame: stacking n separate
         # full frames along the last axis cost ~1.2 ms per detection.
         full_masks = np.zeros(tuple(original_image_shape[:2]) + (len(boxes),), dtype=bool)
-        if telemetry.active():
-            resize_ns = write_ns = 0
-            for i in range(len(boxes)):
-                r, w = I.paste_mask_timed(masks[i], boxes[i], full_masks[..., i])
-                resize_ns, write_ns = resize_ns + r, write_ns + w
-            telemetry.count("detect.unmold.resize_ns", resize_ns)
-            telemetry.count("detect.unmold.write_ns", write_ns)
-        else:
-            for i in range(len(boxes)):
-                I.paste_mask(masks[i], boxes[i], full_masks[..., i])
+        resize_ns = write_ns = 0
+        for i in range(len(boxes)):
+            r, w = I.paste_mask(masks[i], boxes[i], full_masks[..., i])
+            resize_ns, write_ns = resize_ns + r, write_ns + w
+        telemetry.count("detect.unmold.resize_ns", resize_ns)
+        telemetry.count("detect.unmold.write_ns", write_ns)
         return boxes, class_ids, scores, full_masks
 
     # ------------------------------------------------- tiled fast path
@@ -315,13 +311,14 @@ class Detector:
         index)`` gives its molded images and metas, on the device), its
         results' copies to the host started and, with ``paste``, its real
         tiles' masks pasted into new frames (full-frame tile windows);
-        returns the handle of :meth:`fetch`. Over several devices an int8
-        graph is calibrated first, on the first device over the global
+        returns the handle of :meth:`fetch`. An int8 detector without an
+        int8 graph for the current weights calibrates one first, in the
+        batch's ``detect.step`` span, on the first device over the global
         batch's real images."""
         n = len(self.devices)
         cuda = self.device.type == "cuda"
-        if n > 1 and self.config.quant_mode == "int8" and self.int8_graph() is None:
-            with torch.inference_mode():
+        if self.config.quant_mode == "int8" and self.int8_graph() is None:
+            with telemetry.span("detect.step", batch=batch), torch.inference_mode():
                 self._quantize_molded(*inputs(slice(0, n_in), 0), self._constants(shape)[0])
         self._release_pasted()
         fetched, events, frames = [], [], [] if paste else None
@@ -333,7 +330,7 @@ class Detector:
                 with telemetry.span("detect.stage_in", batch=batch):
                     molded, metas = inputs(rows, i)
                 with telemetry.span("detect.step", batch=batch):
-                    out = self._step(molded, metas, anchors, real, i)
+                    out = self._step(molded, metas, anchors, i)
                     fetched.append([self._to_host(t, cuda) for t in (out.detections, out.masks)])
                     if paste:
                         frames += self._paste(out.detections[:real], out.masks[:real], shape[:2], cuda)

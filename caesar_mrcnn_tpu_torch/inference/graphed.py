@@ -7,9 +7,10 @@ batch 8, 512^2, bf16, on an H100), and the tiled detector waited on it.
 :class:`GraphedFeatures` stands in for a ``MaskRCNN`` in
 ``models/mask_rcnn.py::forward_inference``: its ``features`` copies the
 molded batch into the graph's static input, replays the graph and returns
-the graph's static pyramid; its ``config``, ``rpn``, ``classifier`` and
-``mask`` are the model's own, so the later stages run eagerly and every
-tensor ``forward_inference`` returns is made fresh for its batch. A replay
+the graph's static pyramid (the capture of ``MaskRCNN.pyramid`` on the
+cast batch); its ``config``, ``rpn``, ``classifier`` and ``mask`` are the
+model's own, so the later stages run eagerly and every tensor
+``forward_inference`` returns is made fresh for its batch. A replay
 launches the kernels the eager stage launches, on the same inputs and in
 the same order, so the pyramid equals the eager one bit for bit. The
 per-call casts of the f32 weights (``models/layers.py``) are inside the
@@ -59,11 +60,6 @@ class GraphedFeatures:
         self.rpn, self.classifier, self.mask = model.rpn, model.classifier, model.mask
         self._graphs: Dict[tuple, _Captured] = {}
 
-    def stage(self, x: torch.Tensor):
-        """``MaskRCNN.features`` after its cast: backbone and FPN on the
-        batch NCHW channels_last in the compute dtype."""
-        return self.model.fpn(*self.model.backbone(x))
-
     def features(self, images: torch.Tensor):
         """images NHWC [B, H, W, C] -> (P2, ..., P6), the graph's static
         outputs, overwritten by the next replay."""
@@ -90,12 +86,12 @@ class GraphedFeatures:
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            self.stage(images)
+            self.model.pyramid(images)
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         # thread_local: another thread (SFinder.run_tiled's tile reader) may
         # pin host memory while this one captures
         with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-            pyramid = self.stage(images)
+            pyramid = self.model.pyramid(images)
         telemetry.count("detect.features.graph_captures")
         return _Captured(graph, images, pyramid)

@@ -120,8 +120,7 @@ def device_split(fn: Callable, reps: int) -> Dict[str, Tuple[float, float]]:
 # The port's kernels (``csrc/*.cu``); every other device op of a call is
 # its wrapper's (casts, zeros, the sort).
 OWN_KERNELS = ("nms_mask_kernel", "nms_sweep_kernel", "roi_align_kernel", "roi_align_backward_kernel",
-               "crop_and_resize_kernel", "conv_int8_kernel", "conv_int8_wgmma_kernel", "quantize_int8_kernel",
-               "quantize_int8_pad_kernel")
+               "crop_and_resize_kernel", "conv_int8_wgmma_kernel", "quantize_int8_kernel", "quantize_int8_pad_kernel")
 
 
 def own_kernels(split: Dict[str, Tuple[float, float]]) -> Tuple[float, float, float]:
@@ -452,7 +451,7 @@ def quantize_bound(n: int, itemsize: int, n_out: Optional[int] = None) -> Tuple[
 def input_quantize_bound(site: ConvSite) -> Tuple[float, str]:
     """The bound of the quantizer pass in front of ``site``, where no
     producer requantized for it: its float input read at ``in_bytes``, and
-    int8 written with the channels padded to the Hopper route's multiple of
+    int8 written with the channels padded to the Hopper kernel's multiple of
     16 (the stem's 3 to 16)."""
     from .ops.quant import padded_channels
 

@@ -173,8 +173,9 @@ class FoldedConvs(nn.Module):
 
 def pad_input_channels(w: torch.Tensor) -> torch.Tensor:
     """Packed int8 weights [Cout, k, k, Cin] with zero input channels up
-    to a multiple of 16 (the stem's 3 to 16): the int32 sums do not
-    change, and the conv takes the card's Hopper route."""
+    to :func:`~..ops.quant.padded_channels` (the stem's 3 to 16), once
+    when the graph is built, so that ``quant.hopper_operands`` copies
+    nothing per call; the int32 sums do not change."""
     c = w.shape[3]
     return w if c % 16 == 0 else F.pad(w, (0, padded_channels(c) - c)).contiguous()
 

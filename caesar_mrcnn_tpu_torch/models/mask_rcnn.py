@@ -59,7 +59,11 @@ class MaskRCNN(nn.Module):
 
     def features(self, images: torch.Tensor):
         """images NHWC [B, H, W, C] -> (P2, ..., P6), NCHW channels_last."""
-        x = images.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
+        return self.pyramid(images.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last))
+
+    def pyramid(self, x: torch.Tensor):
+        """Backbone and FPN on the cast batch (NCHW channels_last in the
+        compute dtype) -> (P2, ..., P6)."""
         return self.fpn(*self.backbone(x))
 
     def rpn(self, pyramid: Sequence[torch.Tensor]):

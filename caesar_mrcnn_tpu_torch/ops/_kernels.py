@@ -108,8 +108,6 @@ def load(path) -> ctypes.CDLL:
     lib.caesar_roi_align_backward.restype = _I
     lib.caesar_crop_and_resize.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
     lib.caesar_crop_and_resize.restype = _I
-    lib.caesar_conv2d_int8.argtypes = [_P] * 5 + [_I] * 13 + [_F, _I, _P]
-    lib.caesar_conv2d_int8.restype = _I
     lib.caesar_conv2d_int8_wgmma.argtypes = [_P] * 7 + [_I] * 13 + [_F, _I, _I, _I, _P]
     lib.caesar_conv2d_int8_wgmma.restype = _I
     lib.caesar_conv_int8_weight_map.argtypes = [_P, _P, _I, _I, _I]

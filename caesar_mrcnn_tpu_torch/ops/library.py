@@ -6,9 +6,10 @@ Each operator has three implementations, registered apart:
 * ``CUDA``: the kernel, called through the ``ctypes`` library of
   :mod:`._kernels` on the tensors' addresses and the current stream. Every
   choice that needs an address (the ROIAlign forward's lane vector, the
-  int8 convolution's route and its cached TMA weight maps, the split-K
-  counters) is made here, at run time, and each launch is counted here on
-  its public wrapper (``nms_padded.launches``, ``roi_align.launches``, ...);
+  int8 convolution's operand copies and its cached TMA weight maps, the
+  split-K counters) is made here, at run time, and each launch is counted
+  here on its public wrapper (``nms_padded.launches``, ``roi_align.launches``,
+  ...);
 * ``CPU``: the plain PyTorch version beside the wrapper, the tests'
   oracle;
 * fake: shapes and dtypes only, for ``torch.export`` and the meta device.
@@ -345,73 +346,55 @@ def _conv_out_shape(x, w, stride: int, pads):
     return x.shape[0], ho, wo, w.shape[0]
 
 
-def _conv2d_int8_cuda(x, w, sw, b, stride: int, pads, relu: bool, s_next, route):
+def _conv2d_int8_cuda(x, w, sw, b, stride: int, pads, relu: bool, s_next):
     if not w.is_contiguous():
         raise ValueError("conv2d_int8 kernel takes contiguous packed weights (its TMA map is cached by address)")
-    x = x.contiguous()
+    x, w = Q.hopper_operands(x.contiguous(), w)
     bsz, h, wd, c = x.shape
     _, ho, wo, cout = _conv_out_shape(x, w, stride, pads)
     k = w.shape[1]
     mode = _conv_mode(sw, s_next)
     m, kdim = bsz * ho * wo, k * k * c
-    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     sms = _sm_count(x.device)
-    plan = Q.conv_plan(m, cout, kdim, c, aligned, sms)
-    if route == "mma":
-        plan = Q.ConvPlan("mma", 128, 1)
-    elif route not in (None, plan.route):
-        raise ValueError(f"conv2d_int8: the {route} route takes 16 | Cin and 16-byte aligned tensors "
-                         f"(Cin {c}, aligned {aligned})")
+    plan = Q.conv_plan(m, cout, kdim, sms)
     out = torch.empty((bsz, ho, wo, cout), dtype=Q._OUT_DTYPES[mode], device=x.device)
     stream = _stream(x)
-    lib = _kernels.library()
     sw_p = b_p = 0
     if mode != "raw":
         sw, b = sw.contiguous(), b.contiguous()
         sw_p, b_p = sw.data_ptr(), b.data_ptr()
-    s = 0.0 if s_next is None else float(s_next)
-    if plan.route == "wgmma":
-        tmap = _weight_map(w, kdim, cout, plan.bn)
-        ws = counters = None
-        if plan.splits > 1:
-            tiles = -(-m // Q.TILE_M) * -(-cout // plan.bn)
-            ws = torch.empty(plan.splits * tiles * Q.TILE_M * plan.bn, dtype=torch.int32, device=x.device)
-            counters = _split_counters(x.device, stream, tiles)
-        status = lib.caesar_conv2d_int8_wgmma(
-            x.data_ptr(), tmap, sw_p, b_p, out.data_ptr(), 0 if ws is None else ws.data_ptr(),
-            0 if counters is None else counters.data_ptr(), bsz, h, wd, c, ho, wo, cout, k, stride, pads[0],
-            pads[2], int(relu), Q._MODES[mode], s, plan.bn, plan.splits, sms, stream,
-        )
-        _kernels.check(status, "caesar_conv2d_int8_wgmma")
-    else:
-        # 16-byte loads where every (ky, kx) tap is whole 16-byte chunks;
-        # byte loads otherwise (Cin not a multiple of 16, unaligned tensors)
-        vec = c % 16 == 0 and aligned
-        status = lib.caesar_conv2d_int8(
-            x.data_ptr(), w.data_ptr(), sw_p, b_p, out.data_ptr(), bsz, h, wd, c, ho, wo, cout, k, stride,
-            pads[0], pads[2], int(relu), Q._MODES[mode], s, int(vec), stream,
-        )
-        _kernels.check(status, "caesar_conv2d_int8")
+    tmap = _weight_map(w, kdim, cout, plan.bn)
+    ws = counters = None
+    if plan.splits > 1:
+        tiles = -(-m // Q.TILE_M) * -(-cout // plan.bn)
+        ws = torch.empty(plan.splits * tiles * Q.TILE_M * plan.bn, dtype=torch.int32, device=x.device)
+        counters = _split_counters(x.device, stream, tiles)
+    status = _kernels.library().caesar_conv2d_int8_wgmma(
+        x.data_ptr(), tmap, sw_p, b_p, out.data_ptr(), 0 if ws is None else ws.data_ptr(),
+        0 if counters is None else counters.data_ptr(), bsz, h, wd, c, ho, wo, cout, k, stride, pads[0],
+        pads[2], int(relu), Q._MODES[mode], 0.0 if s_next is None else float(s_next), plan.bn, plan.splits, sms,
+        stream,
+    )
+    _kernels.check(status, "caesar_conv2d_int8_wgmma")
     Q.conv2d_int8.launches += 1
-    Q.conv2d_int8.route_launches[plan.route] += 1
+    Q.conv2d_int8.route_launches["wgmma"] += 1
     return out
 
 
-def _conv2d_int8_cpu(x, w, sw, b, stride: int, pads, relu: bool, s_next, route):
+def _conv2d_int8_cpu(x, w, sw, b, stride: int, pads, relu: bool, s_next):
     pads = ((pads[0], pads[1]), (pads[2], pads[3]))
     if sw is None:
         return Q.conv2d_int8_accumulate_plain(x, w, stride, pads)
     return Q.conv2d_int8_plain(x, w, sw, b, stride, pads, relu, s_next)
 
 
-def _conv2d_int8_fake(x, w, sw, b, stride: int, pads, relu: bool, s_next, route):
+def _conv2d_int8_fake(x, w, sw, b, stride: int, pads, relu: bool, s_next):
     return x.new_empty(_conv_out_shape(x, w, stride, pads), dtype=Q._OUT_DTYPES[_conv_mode(sw, s_next)])
 
 
-# pads: (top, bottom, left, right); without sw and b the int32 sums alone;
-# route "mma" forces the mma.sync kernel on the card (None: conv_plan's)
+# pads: (top, bottom, left, right); without sw and b the int32 sums alone
 _register("conv2d_int8(Tensor x, Tensor w, Tensor? sw, Tensor? b, int stride, int[] pads, bool relu, "
-          "float? s_next, str? route) -> Tensor", _conv2d_int8_cpu, _conv2d_int8_cuda, _conv2d_int8_fake)
+          "float? s_next) -> Tensor", _conv2d_int8_cpu, _conv2d_int8_cuda, _conv2d_int8_fake)
 
 
 ops = getattr(torch.ops, NAMESPACE)

@@ -24,11 +24,10 @@ site. The wrappers check their inputs and call the operators
 ``caesar::quantize_int8`` and ``caesar::conv2d_int8`` (``library.py``):
 CUDA tensors run ``csrc/conv_int8.cu`` (each launch counted on the
 wrapper), CPU tensors the plain versions; nothing falls back. The
-convolution has two routes, chosen by shape and alignment on the card
-(:func:`conv_plan`): the Hopper kernel (wgmma, a TMA and cp.async ring,
-split-K) where 16 divides Cin and the tensors are 16-byte aligned, the
-``mma.sync`` kernel for every other shape; each route counts its
-launches in ``conv2d_int8.route_launches``.
+convolution has one kernel on the card, the Hopper kernel (wgmma, a TMA
+and cp.async ring, split-K), which takes 16 | Cin and 16-byte aligned
+tensors: :func:`hopper_operands` readies any other operands for it, and
+:func:`conv_plan` picks its tile width and split.
 """
 
 from __future__ import annotations
@@ -124,8 +123,26 @@ quantize_int8.launches = 0
 
 
 def padded_channels(c: int) -> int:
-    """Input channels as the Hopper route takes them: a multiple of 16."""
+    """Input channels as the Hopper kernel takes them: a multiple of 16."""
     return -(-c // 16) * 16
+
+
+def hopper_operands(x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NHWC int8 ``x`` and packed int8 ``w`` [Cout, k, k, Cin] as the Hopper
+    kernel takes them: Cin zero-padded to :func:`padded_channels` (the
+    padded taps add 0 x w products only), and each copied into fresh
+    storage where its data does not start on a 16-byte boundary. Where
+    both already qualify, the same tensors, no copy: so at every serving
+    site (the stem's image leaves its quantizer with 16 channels, and its
+    weights are padded once, ``backbone_int8.pad_input_channels``)."""
+    pad = padded_channels(x.shape[-1]) - x.shape[-1]
+    if pad:
+        x, w = F.pad(x, (0, pad)), F.pad(w, (0, pad))
+    if x.data_ptr() % 16:
+        x = x.clone()
+    if w.data_ptr() % 16:
+        w = w.clone()
+    return x, w
 
 
 # -------------------------------------------------------------- convolution
@@ -173,7 +190,7 @@ def conv2d_int8_plain(xq, w, sw, b, stride: int, pads: Pads, relu: bool = False,
     return y if s_next is None else quantize_int8_plain(y, s_next)
 
 
-# ------------------------------------------------------------------ routes
+# ------------------------------------------------------------------ plan
 
 SMS = 132  # streaming multiprocessors of an H100 SXM: the plan's default card
 TILE_M, TILE_K = 128, 128  # the Hopper kernel's rows per block and bytes of K per stage (hop::kBM, hop::kBK)
@@ -184,11 +201,9 @@ _OUT_DTYPES = {"raw": torch.int32, "f32": torch.float32, "q8": torch.int8}
 
 
 class ConvPlan(NamedTuple):
-    """How one convolution runs on the card: ``route`` "wgmma" (the Hopper
-    kernel, ``bn`` output channels per block, K split ``splits`` ways) or
-    "mma" (the ``mma.sync`` kernel: 128 x 128 tiles, no split)."""
+    """How one convolution runs on the card: the Hopper kernel with ``bn``
+    output channels per block and K split ``splits`` ways."""
 
-    route: str
     bn: int
     splits: int
 
@@ -221,45 +236,40 @@ def _tiles(m: int, n: int, kdim: int, sms: int) -> Tuple[int, int]:
     return best[1], best[2]
 
 
-def conv_plan(m: int, n: int, kdim: int, cin: int, aligned: bool = True, sms: int = SMS) -> ConvPlan:
-    """The route, tile width and split of one convolution, from its shape
-    and the card's ``sms``: the Hopper kernel where 16 divides ``cin`` and
-    the input and weights are 16-byte ``aligned``, the ``mma.sync`` kernel
-    otherwise."""
-    if cin % 16 or not aligned:
-        return ConvPlan("mma", 128, 1)
-    return ConvPlan("wgmma", *_tiles(m, n, kdim, sms))
+def conv_plan(m: int, n: int, kdim: int, sms: int = SMS) -> ConvPlan:
+    """The tile width and split of one convolution (M x N x K, K with Cin
+    padded as :func:`hopper_operands` pads it) on a card of ``sms`` SMs."""
+    return ConvPlan(*_tiles(m, n, kdim, sms))
 
 
-def conv2d_int8(xq, w, sw, b, stride: int, pads: Pads, relu: bool = False, s_next: Optional[float] = None,
-                route: Optional[str] = None) -> torch.Tensor:
+def conv2d_int8(xq, w, sw, b, stride: int, pads: Pads, relu: bool = False,
+                s_next: Optional[float] = None) -> torch.Tensor:
     """int8 convolution with the f32 epilogue: NHWC int8 ``xq`` [B, H, W,
     Cin] against packed int8 ``w`` [Cout, k, k, Cin], then ``acc * sw[n] +
     b[n]`` (``sw``, ``b``: f32 [Cout]) and an optional ReLU, f32 NHWC [B,
     Ho, Wo, Cout]; with ``s_next`` (the scale of the one convolution that
     reads this output) that value quantized at ``s_next``, int8 NHWC.
     ``pads`` is ((top, bottom), (left, right)), from :func:`xla_pads`.
-    Through ``caesar::conv2d_int8``: CUDA tensors run a kernel of ``csrc/conv_int8.cu`` on the route
-    :func:`conv_plan` picks (``route`` "mma" forces the ``mma.sync`` kernel; "wgmma"
-    raises where the Hopper kernel does not take the shape), one launch,
-    counted in ``conv2d_int8.launches`` and ``.route_launches``; CPU
-    tensors the plain version."""
+    Through ``caesar::conv2d_int8``: CUDA tensors run the Hopper kernel of
+    ``csrc/conv_int8.cu`` on :func:`hopper_operands`, one launch, counted
+    in ``conv2d_int8.launches``; CPU tensors the plain version."""
     if sw is None or b is None:
         raise ValueError("conv2d_int8 takes its scales and biases (conv2d_int8_accumulate gives the sums alone)")
     _check_conv(xq, w, stride, pads, sw, b)
     s_next = None if s_next is None else float(s_next)
-    return library.ops.conv2d_int8(xq, w, sw, b, stride, _flat(pads), relu, s_next, route)
+    return library.ops.conv2d_int8(xq, w, sw, b, stride, _flat(pads), relu, s_next)
 
 
 conv2d_int8.launches = 0
-conv2d_int8.route_launches = {"wgmma": 0, "mma": 0}
+# The same count under the kernel's name, kept only because the benchmark's
+# int8 driver reads it (``conv2d_int8.wgmma`` in its launch log).
+conv2d_int8.route_launches = {"wgmma": 0}
 
 
-def conv2d_int8_accumulate(xq: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
-                           route: Optional[str] = None) -> torch.Tensor:
+def conv2d_int8_accumulate(xq: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads) -> torch.Tensor:
     """The int32 sums alone, NHWC [B, Ho, Wo, Cout]: the kernel of
     :func:`conv2d_int8` with its epilogue off on CUDA tensors (counted as
     it counts), the plain sums on CPU tensors. The checks on the card
     compare these; the detect graph calls :func:`conv2d_int8`."""
     _check_conv(xq, w, stride, pads)
-    return library.ops.conv2d_int8(xq, w, None, None, stride, _flat(pads), False, None, route)
+    return library.ops.conv2d_int8(xq, w, None, None, stride, _flat(pads), False, None)

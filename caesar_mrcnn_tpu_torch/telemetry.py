@@ -129,11 +129,9 @@ def _launches() -> Dict[str, int]:
     """The kernel wrappers' launch counters, now."""
     from .ops import nms, paste, quant, roi_align
 
-    out = {f"launches.{f.__name__}": f.launches for f in (
+    return {f"launches.{f.__name__}": f.launches for f in (
         nms.nms_padded, roi_align.roi_align, roi_align.roi_align_backward, roi_align.crop_and_resize,
         quant.quantize_int8, quant.conv2d_int8, paste.paste_masks)}
-    out.update({f"launches.conv2d_int8.{route}": n for route, n in quant.conv2d_int8.route_launches.items()})
-    return out
 
 
 class Recorder:

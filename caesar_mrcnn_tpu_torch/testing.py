@@ -188,9 +188,9 @@ def op_cases(device) -> List[Tuple[str, object, tuple]]:
         ("quantize_int8", ops.quantize_int8.default, (t(rng.randn(2, 4, 4, 16).astype(np.float32)), 0.02, None)),
         ("quantize_int8 3 -> 16 channels", ops.quantize_int8.default,
          (t(rng.randn(2, 4, 4, 3).astype(np.float32)), 0.02, 16)),
-        ("conv2d_int8 int32 sums", ops.conv2d_int8.default, (xq, wq, None, None, 1, [1, 1, 1, 1], False, None, None)),
-        ("conv2d_int8 f32", ops.conv2d_int8.default, (xq, wq, sw, bias, 2, [0, 1, 0, 1], True, None, None)),
-        ("conv2d_int8 int8", ops.conv2d_int8.default, (xq, wq, sw, bias, 1, [1, 1, 1, 1], True, 0.05, None)),
+        ("conv2d_int8 int32 sums", ops.conv2d_int8.default, (xq, wq, None, None, 1, [1, 1, 1, 1], False, None)),
+        ("conv2d_int8 f32", ops.conv2d_int8.default, (xq, wq, sw, bias, 2, [0, 1, 0, 1], True, None)),
+        ("conv2d_int8 int8", ops.conv2d_int8.default, (xq, wq, sw, bias, 1, [1, 1, 1, 1], True, 0.05)),
     ]
     dets = np.concatenate([boxes.cpu().numpy(), rng.randint(1, 4, (2, 6, 1)), rng.uniform(0, 1, (2, 6, 1))],
                           -1).astype(np.float32)

@@ -106,16 +106,10 @@ def minimize_mask(bbox: np.ndarray, mask: np.ndarray, mini_shape) -> np.ndarray:
     return mini
 
 
-def paste_mask(mask: np.ndarray, bbox, frame: np.ndarray) -> None:
+def paste_mask(mask: np.ndarray, bbox, frame: np.ndarray) -> Tuple[int, int]:
     """Resize a small float mask to ``bbox`` (pixel y1, x1, y2, x2),
-    threshold it at 0.5 and write it into the bool ``frame`` [H, W]."""
-    y1, x1, y2, x2 = [int(v) for v in bbox]
-    frame[y1:y2, x1:x2] = resize(mask, (y2 - y1, x2 - x1)) >= 0.5
-
-
-def paste_mask_timed(mask: np.ndarray, bbox, frame: np.ndarray) -> Tuple[int, int]:
-    """:func:`paste_mask`, its two halves timed apart: (ns of the resize,
-    ns of the threshold and the write into ``frame``)."""
+    threshold it at 0.5 and write it into the bool ``frame`` [H, W].
+    Returns the ns of the resize and the ns of the threshold and write."""
     y1, x1, y2, x2 = [int(v) for v in bbox]
     t0 = time.perf_counter_ns()
     small = resize(mask, (y2 - y1, x2 - x1))

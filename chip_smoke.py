@@ -19,9 +19,9 @@ Phases, one line each:
    ROIAlign forward's and the crop's taps touch; int8 operations over
    1,979 TOPS for the int8 convolution) and the roofline share; the int8
    convolution at seven sites of the serving flagship and at one that
-   requantizes for the next, on both routes (the Hopper kernel and the mma.sync one:
-   int32 sums equal, f32 outputs and the requantized int8 bit-equal), timed
-   in turns beside ``torch._int_mm`` and cuDNN's bf16 conv, and the
+   requantizes for the next (the Hopper kernel: int32 sums equal, f32
+   outputs and the requantized int8 bit-equal), timed beside the unfused
+   pair it replaces, ``torch._int_mm`` and cuDNN's bf16 conv, and the
    quantizer (bit-equal, on .5 ties too);
 4. slice: the tiled detect path (``Detector.dispatch_tiles`` / ``collect``,
    two batches in flight) over 16 tiles of 512^2 read from a seeded 2048^2
@@ -115,7 +115,7 @@ Phases, one line each:
    flagship's width (ResNet-101, FPN 256, batch 8, bf16), on the 16 tiles
    of the seeded 2048^2 mosaic through ``dispatch_tiles``/``collect``, two
    batches in flight: the first batch calibrates it (wall time); launches
-   (123 ``conv2d_int8`` per batch, every one on the Hopper route, and 53
+   (123 ``conv2d_int8`` per batch, every one on the Hopper kernel, and 53
    ``quantize_int8``: the other 70 quantizers run in convolution
    epilogues; 2 NMS and 2 ROIAlign per batch and 2 of each for the
    calibration); a timed third
@@ -134,7 +134,7 @@ Phases, one line each:
    loaded by ``ServingDetector`` in a fresh process that imports nothing of
    ``models/``, which runs the program once on a molded batch of 8
    (launches: 2 NMS and 2 ROIAlign, and 123 ``conv2d_int8`` on the Hopper
-   route and 53 ``quantize_int8`` in the int8 graph; the outputs bit for
+   kernel and 53 ``quantize_int8`` in the int8 graph; the outputs bit for
    bit against ``Detector._step``'s on the same batch, or within 1 bf16
    ulp for the bf16 graph) and detects on the 16 tiles
    (``ServingDetector.detect`` img/s beside ``Detector.detect``'s);
@@ -510,28 +510,25 @@ def check_conv_int8(dev, card_name: str):
     """The int8 convolution at seven sites of the serving flagship
     (``kernel_bench.CONV_INT8_SITES``) and at one site that requantizes
     for the next (``CONV_INT8_FUSED_SITE``), on seeded int8 inputs and
-    weights over the whole range and seeded f32 scales and biases. Both
-    routes, each checked against the plain versions: the Hopper kernel
-    (the route ``conv_plan`` picks for every serving site; the stem with
-    its input and weights padded to 16 channels, as the int8 graph runs it)
-    and the ``mma.sync`` kernel (``route="mma"``): int32 sums equal to the plain
-    version's (f64 sums, exact), f32 outputs bit-equal (the same product,
-    then the same sum), and at the fused site the int8 output bit-equal to
-    ``quantize_int8_plain`` of the plain f32 output. The two kernels timed in
-    turns, the plain version apart, with ``torch._int_mm`` where one matrix product computes
-    the same int32 sums (the library yardstick) and the bf16 cuDNN
-    convolution the float graph runs at the site (context only: another
-    function)."""
+    weights over the whole range and seeded f32 scales and biases. The
+    Hopper kernel, on its operands as ``hopper_operands`` readies them (the
+    stem's input and weights padded to 16 channels, as the int8 graph runs
+    it), against the plain versions: int32 sums equal to the plain version's
+    (f64 sums, exact), f32 outputs bit-equal (the same product, then the
+    same sum), and at the fused site the int8 output bit-equal to
+    ``quantize_int8_plain`` of the plain f32 output. The kernel timed, in
+    turns with the unfused pair at the fused site, the plain version apart,
+    with ``torch._int_mm`` where one matrix product computes the same int32
+    sums (the library yardstick) and the bf16 cuDNN convolution the float
+    graph runs at the site (context only: another function)."""
     import torch
     import torch.nn.functional as F
 
     from caesar_mrcnn_tpu_torch import kernel_bench as kb
-    from caesar_mrcnn_tpu_torch.models.backbone_int8 import pad_input_channels
     from caesar_mrcnn_tpu_torch.ops import library as L
     from caesar_mrcnn_tpu_torch.ops import quant as Q
 
     rec = _record()
-    rec["previous_ms"] = 0.0
     library = {"ms": 0.0, "kernel_ms": 0.0, "sites": []}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     sites = {site.name: site for site in kb.int8_sites(serving_config(), 512, 100)}
@@ -544,49 +541,38 @@ def check_conv_int8(dev, card_name: str):
                           dtype=torch.int8)
         sw = torch.rand(site.cout, generator=gen, device=dev) * 1e-3 + 1e-6
         b = torch.rand(site.cout, generator=gen, device=dev) * 2 - 1
-        # the Hopper route's operands: the stem's 3 channels padded to 16
-        cin = Q.padded_channels(site.cin)
-        xh = F.pad(x, (0, cin - site.cin)).contiguous() if cin != site.cin else x
-        wh = pad_input_channels(w)
-        plan = Q.conv_plan(site.m, site.cout, site.k * site.k * cin, cin,
+        # the kernel's operands: the stem's 3 channels padded to 16, as the int8 graph runs it
+        xh, wh = Q.hopper_operands(x, w)
+        cin = xh.shape[-1]
+        plan = Q.conv_plan(site.m, site.cout, site.k * site.k * cin,
                            sms=torch.cuda.get_device_properties(dev).multi_processor_count)
-        if plan.route != "wgmma":
-            raise AssertionError(f"conv2d_int8 {name}: routed to {plan.route}, not the Hopper kernel")
         s_next = 0.0173 if fused else None
 
         def hopper():
             return Q.conv2d_int8(xh, wh, sw, b, site.stride, site.pads, site.relu, s_next)
 
-        def previous():
-            return Q.conv2d_int8(x, w, sw, b, site.stride, site.pads, site.relu, s_next, route="mma")
-
         def plain():
             return Q.conv2d_int8_plain(x, w, sw, b, site.stride, site.pads, site.relu, s_next)
 
         acc_plain = Q.conv2d_int8_accumulate_plain(x, w, site.stride, site.pads)
-        routes = dict(Q.conv2d_int8.route_launches)
-        accs = {"Hopper": Q.conv2d_int8_accumulate(xh, wh, site.stride, site.pads),
-                "mma.sync": Q.conv2d_int8_accumulate(x, w, site.stride, site.pads, route="mma")}
-        outs = {"Hopper": hopper(), "mma.sync": previous()}
-        if Q.conv2d_int8.route_launches != {"wgmma": routes["wgmma"] + 2, "mma": routes["mma"] + 2}:
-            raise AssertionError(f"conv2d_int8 {name}: route launches {Q.conv2d_int8.route_launches}, before {routes}")
+        launched = dict(Q.conv2d_int8.route_launches)
+        acc, out = Q.conv2d_int8_accumulate(xh, wh, site.stride, site.pads), hopper()
+        if Q.conv2d_int8.route_launches != {"wgmma": launched["wgmma"] + 2}:
+            raise AssertionError(f"conv2d_int8 {name}: launches {Q.conv2d_int8.route_launches}, before {launched}")
         out_plain = plain()
         torch.cuda.synchronize()
-        for route, acc in accs.items():
-            if not torch.equal(acc, acc_plain):
-                raise AssertionError(f"conv2d_int8 {name} ({route}): {int((acc != acc_plain).sum())} int32 sums differ")
-        for route, out in outs.items():
-            same = torch.equal(out, out_plain) if fused else torch.equal(out.view(torch.int32),
-                                                                         out_plain.view(torch.int32))
-            if not same:
-                raise AssertionError(f"conv2d_int8 {name} ({route}): {int((out != out_plain).sum())} outputs differ")
-        del accs, outs, out_plain
+        if not torch.equal(acc, acc_plain):
+            raise AssertionError(f"conv2d_int8 {name}: {int((acc != acc_plain).sum())} int32 sums differ")
+        same = torch.equal(out, out_plain) if fused else torch.equal(out.view(torch.int32), out_plain.view(torch.int32))
+        if not same:
+            raise AssertionError(f"conv2d_int8 {name}: {int((out != out_plain).sum())} outputs differ")
+        del acc, out, out_plain
         def unfused():  # the pair the fused call replaces: f32 out, then the quantizer pass
-            return Q.quantize_int8(Q.conv2d_int8(x, w, sw, b, site.stride, site.pads, site.relu, route="mma"), s_next)
+            return Q.quantize_int8(Q.conv2d_int8(xh, wh, sw, b, site.stride, site.pads, site.relu), s_next)
 
-        # the kernels in turns; the plain version apart (its f64 convolution runs for up to 22 ms at full power
-        # and slows whatever follows it)
-        ms, previous_ms, *unfused_ms = kb.median_ms_turns([hopper, previous] + ([unfused] if fused else []), kb.REPS)
+        # the kernel in turns with the unfused pair; the plain version apart (its f64 convolution runs for up to
+        # 22 ms at full power and slows whatever follows it)
+        ms, *unfused_ms = kb.median_ms_turns([hopper] + ([unfused] if fused else []), kb.REPS)
         plain_ms = kb.median_ms(plain, 3)
         bound = kb.conv_int8_bound(site if fused else site._replace(then=None))
         lib = ""
@@ -617,10 +603,10 @@ def check_conv_int8(dev, card_name: str):
         if name == "fpn/c5p5":  # the host's share: wrapper calls enqueued back to back (split-K: a scratch tile too)
             def direct():  # the wrapper's checks, then the CUDA implementation: the call without the dispatcher
                 Q._check_conv(xh, wh, site.stride, site.pads, sw, b)
-                return L._conv2d_int8_cuda(xh, wh, sw, b, site.stride, Q._flat(site.pads), site.relu, s_next, None)
+                return L._conv2d_int8_cuda(xh, wh, sw, b, site.stride, Q._flat(site.pads), site.relu, s_next)
 
             host = {}
-            for label, fn in (("Hopper", hopper), ("direct", direct), ("mma.sync", previous), ("Hopper again", hopper),
+            for label, fn in (("Hopper", hopper), ("direct", direct), ("Hopper again", hopper),
                               ("direct again", direct)):
                 torch.cuda.synchronize()
                 t = time.perf_counter()
@@ -629,20 +615,18 @@ def check_conv_int8(dev, card_name: str):
                 host[label] = (time.perf_counter() - t) / 200 * 1e3
                 torch.cuda.synchronize()
             extra = (f"; host time per wrapper call through torch.ops.caesar.conv2d_int8 (200 enqueued, host clock): "
-                     f"Hopper route {host['Hopper']:.4f} / {host['Hopper again']:.4f} ms, the mma.sync route "
-                     f"{host['mma.sync']:.4f} ms; the wrapper's checks and the CUDA implementation without the "
-                     f"dispatcher {host['direct']:.4f} / {host['direct again']:.4f} ms")
+                     f"{host['Hopper']:.4f} / {host['Hopper again']:.4f} ms; the wrapper's checks and the CUDA "
+                     f"implementation without the dispatcher {host['direct']:.4f} / {host['direct again']:.4f} ms")
         if fused:
-            extra += f"; the unfused pair on the mma.sync route (f32 conv, then quantize_int8) {unfused_ms[0]:.4f} ms"
+            extra += f"; the unfused pair (f32 conv, then quantize_int8) {unfused_ms[0]:.4f} ms"
         print(f"kernels: conv2d_int8 {name} {site.k}x{site.k}/{site.stride} [{site.batch},{site.h},{site.w},"
-              f"{site.cin}] -> {site.cout}, M={site.m} K={site.kdim} N={site.cout}: int32 sums equal, {what}, on "
-              f"both routes; Hopper kernel (bn {plan.bn}, split {plan.splits}, Cin {cin}) {ms:.4f} ms "
-              f"({site.ops / ms / 1e9:.1f} TOPS), mma.sync kernel {previous_ms:.4f} ms (medians in turns, CUDA "
-              f"events), plain {plain_ms:.3f} ms{extra}; {share(bound[0], ms)} ({bound[1]}); "
+              f"{site.cin}] -> {site.cout}, M={site.m} K={site.kdim} N={site.cout}: int32 sums equal, {what}; "
+              f"Hopper kernel (bn {plan.bn}, split {plan.splits}, Cin {cin}) {ms:.4f} ms "
+              f"({site.ops / ms / 1e9:.1f} TOPS; median, CUDA events), plain {plain_ms:.3f} ms{extra}; "
+              f"{share(bound[0], ms)} ({bound[1]}); "
               f"{lib or 'no PyTorch int8 call; '}cuDNN bf16 conv of the float graph {cudnn_ms:.4f} ms (context) "
               f"[{card_name}]")
         _add(rec, 0.0, ms, plain_ms, bound)
-        rec["previous_ms"] += previous_ms
         del x, w, xh, wh, xf, wf
     torch.cuda.empty_cache()
     return rec, library
@@ -1131,7 +1115,7 @@ def _premold(det, tiles: np.ndarray):
 def check_serving(card_name: str):
     """The int8 serving graph at the serving flagship's width on the card,
     through ``dispatch_tiles``/``collect`` (module docstring, phase 10).
-    Returns the first pass's launches and ``conv2d_int8``'s by route."""
+    Returns the first pass's launches and ``conv2d_int8.route_launches``."""
     import torch
 
     from caesar_mrcnn_tpu_torch import kernel_bench as kb
@@ -1164,7 +1148,7 @@ def check_serving(card_name: str):
     conv = counters["conv2d_int8"]
     for k in counters.values():
         k.launches = 0
-    conv.route_launches = {"wgmma": 0, "mma": 0}
+    conv.route_launches = {"wgmma": 0}
     results = run_pass(det, tiles)
     launches = {name: k.launches for name, k in counters.items()}
     routes = dict(conv.route_launches)
@@ -1174,8 +1158,8 @@ def check_serving(card_name: str):
         raise AssertionError(f"serving launches {launches}, expected {expected} ({INT8_SITES} int8 convs and "
                              f"{INT8_QUANTIZERS} quantizer passes per batch, 2 NMS and 2 ROIAlign per batch and 2 "
                              f"of each for the calibration); {len(calibration)} calibrations, {len(det.qtree)} sites")
-    if routes != {"wgmma": INT8_SITES * batches, "mma": 0}:
-        raise AssertionError(f"serving: conv2d_int8 routes {routes}: every one of the {INT8_SITES} sites of a batch "
+    if routes != {"wgmma": INT8_SITES * batches}:
+        raise AssertionError(f"serving: conv2d_int8 {routes}: every one of the {INT8_SITES} sites of a batch "
                              f"must run the Hopper kernel")
     for r in results:
         n = len(r["class_ids"])
@@ -1197,19 +1181,19 @@ def check_serving(card_name: str):
     peak = torch.cuda.max_memory_allocated()
     print(f"serving: {len(tiles)} tiles of 512^2 from the seeded 2048^2 mosaic, ResNet-101 batch 8 int8 "
           f"(bf16 heads), 3000/512 proposals; calibration on the first batch {calibration[0]:.3f} s; launches over "
-          f"the first pass {launches} ({INT8_SITES} conv2d_int8, all on the Hopper route {routes}, and "
+          f"the first pass {launches} ({INT8_SITES} conv2d_int8, all on the Hopper kernel {routes}, and "
           f"{INT8_QUANTIZERS} quantize_int8 per batch: {INT8_FUSED} quantizers run in convolution epilogues); "
           f"detections per tile {counts} [{card_name}]")
 
     x, metas, anchors = _premold(det, tiles[:cfg.batch_size])
     bf16 = Detector(flagship_config(pre_nms_limit=3000, post_nms_rois_inference=512), det.model, "cuda")
-    steps = {name: kb.median_ms(lambda d=d: d._step(x, metas, anchors, len(x)), 10)
+    steps = {name: kb.median_ms(lambda d=d: d._step(x, metas, anchors), 10)
              for name, d in (("int8", det), ("bf16", bf16), ("int8 again", det), ("bf16 again", bf16))}
-    split = kb.device_split(lambda: det._step(x, metas, anchors, len(x)), 3)
+    split = kb.device_split(lambda: det._step(x, metas, anchors), 3)
     own = {k: sum(ms for key, (ms, _) in split.items() if k in key) for k in ("conv_int8", "quantize_int8")}
     total = sum(ms for ms, _ in split.values())
     top = sorted(split.items(), key=lambda kv: -kv[1][0])[:5]
-    bf16_total = sum(ms for ms, _ in kb.device_split(lambda: bf16._step(x, metas, anchors, len(x)), 3).values())
+    bf16_total = sum(ms for ms, _ in kb.device_split(lambda: bf16._step(x, metas, anchors), 3).values())
     sites = kb.int8_sites(cfg, cfg.post_nms_rois_inference, cfg.detection_max_instances)
     conv_bound = sum(kb.conv_int8_bound(s)[0] for s in sites)
     unfused_bound = sum(kb.conv_int8_bound(s._replace(then=None))[0] for s in sites)
@@ -1307,7 +1291,7 @@ counters = {"nms": nms.nms_padded, "roi_align": roi_align.roi_align, "conv2d_int
             "quantize_int8": quant.quantize_int8}
 for k in counters.values():
     k.launches = 0
-quant.conv2d_int8.route_launches = {"wgmma": 0, "mma": 0}
+quant.conv2d_int8.route_launches = {"wgmma": 0}
 molded = torch.load(molded_path).cuda()
 torch.cuda.synchronize()
 with torch.no_grad():
@@ -1354,9 +1338,8 @@ def check_export(card_name: str) -> dict:
         tiles = read_tiles(path, 2048, 512)
     det8 = build_detector(serving_config(), seed=SEED, device="cuda")
     settle_random_weights(det8.model)
+    det8.collect(det8.dispatch_tiles(tiles[:det8.config.batch_size]))  # the first batch calibrates, as in serving:
     x, metas, anchors = _premold(det8, tiles[:det8.config.batch_size])
-    with torch.inference_mode():
-        det8._quantize_molded(x, metas, anchors)
     bf16 = Detector(flagship_config(pre_nms_limit=3000, post_nms_rois_inference=512), det8.model, "cuda")
     images = [np.repeat(t[..., None], 3, -1).astype(np.float32) for t in tiles]
     per_batch = {"nms": 2, "roi_align": 2, "conv2d_int8": 0, "quantize_int8": 0}
@@ -1378,7 +1361,7 @@ def check_export(card_name: str) -> dict:
             save_artifact(program, sidecar, art)
             save_s = time.perf_counter() - t
             del program
-            live = det._step(x, metas, anchors, len(x))
+            live = det._step(x, metas, anchors)
             live = {"detections": live.detections.cpu(), "masks": live.masks.cpu()}
             bs = det.config.batch_size
             det.detect(images[:bs])
@@ -1398,7 +1381,7 @@ def check_export(card_name: str) -> dict:
                   f"3000/512 proposals): export {export_s:.2f} s, save {save_s:.2f} s, "
                   f"{os.path.getsize(art) / 1e6:.1f} MB, load {out['load_s']:.2f} s in a fresh process (models/ "
                   f"imported there: {out['models']}); caesar:: nodes {out['nodes']} [{card_name}]")
-            print(f"export: {name} loaded program, one batch of 8: launches {out['launches']} (conv2d_int8 routes "
+            print(f"export: {name} loaded program, one batch of 8: launches {out['launches']} (conv2d_int8 "
                   f"{out['routes']}); outputs against Detector._step on the same molded batch: bit for bit "
                   f"{same}, max difference in bf16 ulps {ulps} [{card_name}]")
             print(f"export: {name} ServingDetector.detect {out['img_s']:.2f} img/s against Detector.detect "
@@ -1409,8 +1392,8 @@ def check_export(card_name: str) -> dict:
             if out["launches"] != expected or out["nodes"] != {k: v for k, v in expected.items() if v}:
                 raise AssertionError(f"export {name}: launches {out['launches']}, nodes {out['nodes']}, "
                                      f"expected {expected} per batch")
-            if out["routes"] != {"wgmma": expected["conv2d_int8"], "mma": 0}:
-                raise AssertionError(f"export {name}: conv2d_int8 routes {out['routes']}: every site must run the "
+            if out["routes"] != {"wgmma": expected["conv2d_int8"]}:
+                raise AssertionError(f"export {name}: conv2d_int8 {out['routes']}: every site must run the "
                                      f"Hopper kernel")
             if not all(same.values()) and (name == "int8" or max(ulps.values()) > 1):
                 raise AssertionError(f"export {name}: the loaded program's outputs differ from Detector._step's "
@@ -3191,7 +3174,7 @@ def main() -> None:
         {**record("conv2d_int8", "conv_int8.cu", "caesar_mrcnn_tpu/models/backbone_int8.py:276", conv8,
                   conv8_library["ms"]),
          "library_sites": conv8_library["sites"], "ms_at_library_sites": conv8_library["kernel_ms"],
-         "ms_previous_route": conv8["previous_ms"], "serving_routes": serving_routes},
+         "serving_routes": serving_routes},
         record("quantize_int8", "conv_int8.cu", "caesar_mrcnn_tpu/models/backbone_int8.py:272", quant8),
         record("paste_masks", "paste_masks.cu", "caesar_mrcnn_tpu/inference/detector.py:186", paste),
     ]

@@ -147,7 +147,7 @@ def test_serving_detector_equals_live_detector_bitwise(exported, servers, graph)
     images = _images(1)
     molded = np.stack(images) - np.asarray(srv.meta["mean_pixel"], np.float32)
     anchors, metas = tdet._constants((64, 64, 3))
-    live = tdet._step(torch.from_numpy(molded), metas, anchors, 2)
+    live = tdet._step(torch.from_numpy(molded), metas, anchors)
     served = srv._call(molded)
     assert (graph == "int8") == (tdet.int8_graph() is not None)
     for a, b in zip((live.detections, live.masks), served):

@@ -15,8 +15,11 @@ proposals, 8 detections, seed 0 weights):
   ``config`` and later stages, the same one after ``load_state_dict``
   (which writes into the parameters the graph reads), one for each
   replica's own model over two devices, and never for an int8 detector;
-* the graph's stage on the cast batch equals ``MaskRCNN.features`` bit
-  for bit, in f32 and bf16;
+  an int8 detector without an int8 graph gets no graph at all (it
+  raises), and ``dispatch_tiles`` and ``detect`` calibrate it once per
+  weights version, on the batch's real molded images;
+* ``MaskRCNN.pyramid`` (the graph's capture) on the cast batch equals
+  ``MaskRCNN.features`` bit for bit, in f32 and bf16;
 * ``forward_train`` (with and without remat) and ``export_program`` still
   go through ``MaskRCNN.features``.
 
@@ -138,6 +141,64 @@ def test_int8_detector_never_gets_the_graphed_stage(monkeypatch):
     assert isinstance(det._graph(0), DetectStages) and not det._graphed
 
 
+def test_uncalibrated_int8_detector_gets_no_graph(monkeypatch):
+    det = build_detector(_config(quant_mode="int8"), device="cpu", seed=0)
+    _as_if_cuda(monkeypatch)  # the int8 rule comes first: never the float features graph
+    with pytest.raises(RuntimeError, match="no int8 graph"):
+        det._graph(0)
+    assert not det._graphed and det.int8_graph() is None
+
+
+def _same_tree(a, b):
+    assert a.keys() == b.keys()
+    for site in a:
+        assert a[site].keys() == b[site].keys()
+        for k in a[site]:
+            assert np.array_equal(np.asarray(a[site][k]), np.asarray(b[site][k])), (site, k)
+
+
+@pytest.mark.parametrize("path", ["dispatch_tiles", "detect"])
+def test_int8_detector_calibrates_once_per_weights_version(path):
+    """The first batch calibrates, on its one real image of two (the batch
+    padded): the same tree as ``_quantize_molded`` on that image's molded
+    batch; the next batch does not; after a write to the weights the next
+    batch calibrates again."""
+    det = build_detector(_config(quant_mode="int8"), device="cpu", seed=0)
+    ref = build_detector(_config(quant_mode="int8"), device="cpu", seed=0)
+    calls = []
+    quantize_molded = det._quantize_molded
+
+    def counted(molded, metas, anchors):
+        calls.append(molded.shape)
+        quantize_molded(molded, metas, anchors)
+
+    det._quantize_molded = counted
+    tiles = _tiles(16, n=1)
+    images = [t[..., None].repeat(3, -1).astype(np.float32) for t in tiles]
+
+    def run(tiles, images):
+        if path == "dispatch_tiles":
+            return det.collect(det.dispatch_tiles(tiles))
+        return det.detect(images)
+
+    run(tiles, images)
+    assert calls == [(1, 64, 64, 3)]
+    if path == "dispatch_tiles":
+        molded = torch.from_numpy(tiles.astype(np.float32))[..., None].expand(-1, -1, -1, 3) - ref._mean
+        metas = ref._constants((64, 64, 3))[1][:1]
+    else:
+        molded, metas, _ = (torch.from_numpy(a) for a in ref.mold_inputs(images))
+    with torch.inference_mode():
+        ref._quantize_molded(molded, metas, ref._constants((64, 64, 3))[0])
+    _same_tree(det.qtree, ref.qtree)
+    run(_tiles(17, n=2), list(images) * 2)
+    assert len(calls) == 1
+    with torch.no_grad():
+        det.model.fpn.fpn_p2.bias.add_(0.0)  # a write in place: the int8 graph is dropped
+    run(tiles, images)
+    assert len(calls) == 2 and isinstance(det._graph(0), DetectStages)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_stage_on_the_cast_batch_equals_model_features(dtype):
     det = build_detector(_config(compute_dtype=dtype), device="cpu", seed=0)
@@ -146,7 +207,7 @@ def test_stage_on_the_cast_batch_equals_model_features(dtype):
     cast = torch.empty(x.shape, dtype=det.model.dtype, memory_format=torch.channels_last)
     cast.copy_(x)  # as GraphedFeatures._capture and .features fill the static input
     with torch.inference_mode():
-        got = G.GraphedFeatures(det.model).stage(cast)
+        got = det.model.pyramid(cast)
         want = det.model.features(images)
     assert len(got) == len(want) == 5
     for g, w in zip(got, want):

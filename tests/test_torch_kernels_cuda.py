@@ -366,8 +366,9 @@ def test_crop_and_resize_kernel_rejects_what_it_does_not_take(cuda):
 )
 def test_conv2d_int8_kernel_equals_plain(cuda, b, h, w, cin, cout, k, stride, padding):
     """The int32 sums equal and the f32 epilogue bit-equal, with and without
-    ReLU, at odd sizes: Cin not a multiple of 16 (byte loads), K and M
-    tails, Cout below and across a 128 tile, a single filter."""
+    ReLU, at odd sizes: Cin not a multiple of 16 (padded by
+    ``hopper_operands``), K and M tails, Cout below and across a 128 tile,
+    a single filter."""
     gen = torch.Generator(device=cuda).manual_seed(h * w + cin)
     x = torch.randint(-127, 128, (b, h, w, cin), generator=gen, device=cuda, dtype=torch.int8)
     wt = torch.randint(-127, 128, (cout, k, k, cin), generator=gen, device=cuda, dtype=torch.int8)
@@ -386,7 +387,8 @@ def test_conv2d_int8_kernel_equals_plain(cuda, b, h, w, cin, cout, k, stride, pa
 
 
 def test_conv2d_int8_kernel_takes_an_unaligned_input(cuda):
-    """An input view 1 byte into its buffer runs the byte loads."""
+    """An input view 1 byte into its buffer: copied to aligned storage by
+    ``hopper_operands``."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     buf = torch.randint(-127, 128, (1 + 2 * 9 * 9 * 32,), generator=gen, device=cuda, dtype=torch.int8)
     x = buf[1:].view(2, 9, 9, 32)
@@ -425,16 +427,16 @@ def _hopper_equals_plain(x, wt, sw, bias, stride, pads):
     """The Hopper route's int32 sums equal and its f32 (with and without
     ReLU) and requantized outputs bit-equal to the plain versions."""
     routes = dict(Q.conv2d_int8.route_launches)
-    acc = Q.conv2d_int8_accumulate(x, wt, stride, pads, route="wgmma")
+    acc = Q.conv2d_int8_accumulate(x, wt, stride, pads)
     assert torch.equal(acc, Q.conv2d_int8_accumulate_plain(x, wt, stride, pads))
     for relu in (False, True):
-        got = Q.conv2d_int8(x, wt, sw, bias, stride, pads, relu, route="wgmma")
+        got = Q.conv2d_int8(x, wt, sw, bias, stride, pads, relu)
         assert torch.equal(got, Q.conv2d_int8_plain(x, wt, sw, bias, stride, pads, relu))
-    got = Q.conv2d_int8(x, wt, sw, bias, stride, pads, True, s_next=0.0137, route="wgmma")
+    got = Q.conv2d_int8(x, wt, sw, bias, stride, pads, True, s_next=0.0137)
     torch.cuda.synchronize()
     assert got.dtype == torch.int8
     assert torch.equal(got, Q.conv2d_int8_plain(x, wt, sw, bias, stride, pads, True, s_next=0.0137))
-    assert Q.conv2d_int8.route_launches == {**routes, "wgmma": routes["wgmma"] + 4}
+    assert Q.conv2d_int8.route_launches == {"wgmma": routes["wgmma"] + 4}
 
 
 # M, K and Cout tails around 64, 128 and 256: M 126 / 72 / 396 / 128 / 130,
@@ -469,8 +471,7 @@ def test_conv2d_int8_hopper_split_k(cuda, monkeypatch, splits):
         _hopper_equals_plain(x, wt, sw, bias, 1, pads)
 
 
-@pytest.mark.parametrize("route", ["wgmma", "mma"])
-def test_conv2d_int8_requantize_on_ties_and_past_127(cuda, route):
+def test_conv2d_int8_requantize_on_ties_and_past_127(cuda):
     """The requantizing epilogue bit-equal to quantize_int8_plain of the
     plain f32 output where y / s_next lands on .5 ties (sw a power of two,
     the bias a half) and far past +-127."""
@@ -479,7 +480,7 @@ def test_conv2d_int8_requantize_on_ties_and_past_127(cuda, route):
     bias = torch.arange(48, device=cuda, dtype=torch.float32) * 0.5 - 12.0
     pads = Q.xla_pads("SAME", 3, 1, (10, 10))
     for relu, s_next in ((False, 0.25), (True, 0.5), (False, 2.0 ** -7)):
-        got = Q.conv2d_int8(x, wt, sw, bias, 1, pads, relu, s_next=s_next, route=route)
+        got = Q.conv2d_int8(x, wt, sw, bias, 1, pads, relu, s_next=s_next)
         y = Q.conv2d_int8_plain(x, wt, sw, bias, 1, pads, relu)
         torch.cuda.synchronize()
         assert torch.equal(got, Q.quantize_int8_plain(y, s_next))
@@ -492,7 +493,7 @@ def test_conv2d_int8_requantize_on_ties_and_past_127(cuda, route):
 def test_stem_padded_to_16_channels_equals_unpadded(cuda, dtype):
     """The stem's image quantized with its 3 channels padded to 16 and the
     packed weights padded to match: the same int32 sums as the unpadded
-    conv, on the Hopper route (K 784 against 147)."""
+    conv, on the Hopper kernel (K 784 against 147)."""
     from caesar_mrcnn_tpu_torch.models.backbone_int8 import pad_input_channels
 
     rng = np.random.RandomState(3)
@@ -514,27 +515,22 @@ def test_stem_padded_to_16_channels_equals_unpadded(cuda, dtype):
     assert torch.equal(got, Q.conv2d_int8_accumulate_plain(plain, wt, 2, pads))
 
 
-def test_conv2d_int8_routes_are_chosen_by_shape(cuda):
-    """16 | Cin and aligned: the Hopper route; Cin 3, or an input 1 byte
-    into its buffer: the mma.sync kernel; each counted on its route, and the
-    Hopper route asked for a shape it does not take raises before any
-    launch."""
-    x, wt, sw, bias = _int8_case(cuda, 1, 6, 6, 32, 16, 3, seed=0)
-    pads = Q.xla_pads("SAME", 3, 1, (6, 6))
-    assert Q.conv_plan(36, 16, 288, 32).route == "wgmma"
-    assert Q.conv_plan(36, 16, 27, 3).route == "mma" and Q.conv_plan(36, 16, 288, 32, aligned=False).route == "mma"
-    counts = lambda: (Q.conv2d_int8.launches, dict(Q.conv2d_int8.route_launches))  # noqa: E731
-    n, routes = counts()
-    Q.conv2d_int8(x, wt, sw, bias, 1, pads)
-    Q.conv2d_int8(x, wt, sw, bias, 1, pads, route="mma")
+def test_conv2d_int8_every_shape_takes_the_hopper_kernel(cuda):
+    """Cin 3 and an input 1 byte into its buffer, readied by
+    ``hopper_operands``: the plain int32 sums, each one launch of the
+    Hopper kernel."""
+    x, wt, _, _ = _int8_case(cuda, 1, 6, 6, 32, 16, 3, seed=0)
     x3, w3, _, _ = _int8_case(cuda, 1, 6, 6, 3, 16, 3, seed=0)
-    Q.conv2d_int8(x3, w3, sw, bias, 1, pads)
     buf = torch.zeros(1 + x.numel(), dtype=torch.int8, device=cuda)
-    Q.conv2d_int8(buf[1:].view(x.shape), wt, sw, bias, 1, pads)
-    assert counts() == (n + 4, {"wgmma": routes["wgmma"] + 1, "mma": routes["mma"] + 3})
-    with pytest.raises(ValueError, match="wgmma route"):
-        Q.conv2d_int8(x3, w3, sw, bias, 1, pads, route="wgmma")
-    assert counts()[0] == n + 4
+    unaligned = buf[1:].view(x.shape).copy_(x)
+    assert unaligned.data_ptr() % 16
+    pads = Q.xla_pads("SAME", 3, 1, (6, 6))
+    for xi, wi in ((x3, w3), (unaligned, wt)):
+        n, routes = Q.conv2d_int8.launches, dict(Q.conv2d_int8.route_launches)
+        got = Q.conv2d_int8_accumulate(xi, wi, 1, pads)
+        assert (Q.conv2d_int8.launches, Q.conv2d_int8.route_launches) == (n + 1, {"wgmma": routes["wgmma"] + 1})
+        torch.cuda.synchronize()
+        assert torch.equal(got, Q.conv2d_int8_accumulate_plain(xi, wi, 1, pads))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

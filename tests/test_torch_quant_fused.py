@@ -1,9 +1,12 @@
-"""The int8 graph's Hopper route and fused quantizers, on the CPU:
+"""The int8 graph's Hopper kernel plan and fused quantizers, on the CPU:
 
-* ``ops/quant.py::conv_plan`` over the serving flagship's 123 sites: every
-  site on the Hopper route (the stem with its channels padded to 16), a
-  tile width of 64, 128 or 256, a split of K in whole shares, and the
-  sites whose output tiles alone would not fill the card's 132 SMs filled;
+* ``ops/quant.py::conv_plan`` over the serving flagship's 123 sites (the
+  stem with its channels padded to 16): a tile width of 64, 128 or 256, a
+  split of K in whole shares, and the sites whose output tiles alone would
+  not fill the card's 132 SMs filled;
+* ``ops/quant.py::hopper_operands``: Cin padded to 16 and unaligned
+  operands copied, the int32 sums unchanged, and the serving sites'
+  operands passed through with no copy;
 * the ``then`` map of the stages' walk: exactly the 70 convolutions whose
   output one quantized convolution alone reads;
 * the fused plain path (``quantize_int8_plain(conv2d_int8_plain(...))``
@@ -61,8 +64,8 @@ def test_conv_plan_over_the_serving_sites(sites):
     for s in sites:
         cin = Q.padded_channels(s.cin)
         kdim = s.k * s.k * cin
-        plan = Q.conv_plan(s.m, s.cout, kdim, cin)
-        assert plan.route == "wgmma" and plan.bn in Q.TILE_N and 1 <= plan.splits <= Q.MAX_SPLITS, s.name
+        plan = Q.conv_plan(s.m, s.cout, kdim)
+        assert plan.bn in Q.TILE_N and 1 <= plan.splits <= Q.MAX_SPLITS, s.name
         nk = -(-kdim // Q.TILE_K)
         kps = -(-nk // plan.splits)
         assert -(-nk // kps) == plan.splits and (plan.splits == 1 or kps >= 2), s.name
@@ -76,8 +79,8 @@ def test_conv_plan_over_the_serving_sites(sites):
     assert small == SMALL_GRID
     stem = sites[0]
     assert (stem.name, Q.padded_channels(stem.cin) * 49) == ("bb/conv1", 784)
-    assert Q.conv_plan(stem.m, 64, 147, 3) == Q.ConvPlan("mma", 128, 1)  # unpadded: the mma.sync kernel
-    assert sum(Q.conv_plan(s.m, s.cout, s.k * s.k * s.cin, s.cin).splits > 1 for s in sites) >= 8
+    assert Q.conv_plan(stem.m, 64, 784) == Q.ConvPlan(64, 1)  # the padded stem: 4096 tiles fill the card unsplit
+    assert sum(Q.conv_plan(s.m, s.cout, s.k * s.k * Q.padded_channels(s.cin)).splits > 1 for s in sites) >= 8
 
 
 def test_then_names_the_70_single_consumer_sites(sites):
@@ -192,6 +195,29 @@ def test_stem_padding_equals_lax_on_the_unpadded_image():
                        Q.quantize_int8_plain(torch.from_numpy(img), 1.0))
 
 
+@pytest.mark.parametrize("case", ["Cin 3", "Cin 24", "input 1 byte into its buffer"])
+def test_hopper_operands_keep_the_int32_sums(case):
+    """The operands as the Hopper kernel takes them (16 | Cin, data on a
+    16-byte boundary) give the plain int32 sums of the operands given."""
+    rs = np.random.RandomState(len(case))
+    cin = {"Cin 3": 3, "Cin 24": 24}.get(case, 32)
+    x = torch.from_numpy(rs.randint(-127, 128, (2, 9, 8, cin)).astype(np.int8))
+    w = torch.from_numpy(rs.randint(-127, 128, (5, 3, 3, cin)).astype(np.int8))
+    if case.startswith("input"):
+        buf = torch.empty(x.numel() + 16, dtype=torch.int8)
+        offset = (1 - buf.data_ptr()) % 16  # an address one byte past a 16-byte boundary
+        x = buf[offset:offset + x.numel()].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 == 1
+    xh, wh = Q.hopper_operands(x, w)
+    assert xh.shape[-1] == wh.shape[-1] == Q.padded_channels(cin) and xh.shape[:3] == x.shape[:3]
+    assert xh.data_ptr() % 16 == wh.data_ptr() % 16 == 0 and xh.is_contiguous() and wh.is_contiguous()
+    pads = Q.xla_pads("SAME", 3, 2, (9, 8))
+    assert torch.equal(Q.conv2d_int8_accumulate_plain(xh, wh, 2, pads), Q.conv2d_int8_accumulate_plain(x, w, 2, pads))
+    assert (wh is w) == (cin == 32) and not xh[..., cin:].any()
+    aligned = torch.empty_like(xh).copy_(xh)
+    assert all(a is b for a, b in zip(Q.hopper_operands(aligned, wh), (aligned, wh)))  # ready: no copy
+
+
 def test_plan_tiles_are_the_kernels_constants():
     """TILE_M and TILE_K (the split-K scratch's rows per tile, the stages
     of K the plan counts) are the Hopper kernel's kBM and kBK."""
@@ -204,8 +230,8 @@ def test_plan_tiles_are_the_kernels_constants():
 def test_conv_plan_counts_waves_over_the_cards_sms():
     """fpn/c5p5 (32 tiles of 128 x 128, 16 stages of K): split four ways on
     132 SMs, three on a 114-SM card, two on 66."""
-    assert [Q.conv_plan(2048, 256, 2048, 2048, sms=n).splits for n in (132, 114, 66)] == [4, 3, 2]
-    assert Q.conv_plan(2048, 256, 2048, 2048) == Q.conv_plan(2048, 256, 2048, 2048, sms=Q.SMS)
+    assert [Q.conv_plan(2048, 256, 2048, sms=n).splits for n in (132, 114, 66)] == [4, 3, 2]
+    assert Q.conv_plan(2048, 256, 2048) == Q.conv_plan(2048, 256, 2048, sms=Q.SMS)
 
 
 @pytest.mark.parametrize("name", sorted(variants.VARIANTS))

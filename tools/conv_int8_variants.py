@@ -109,6 +109,16 @@ VARIANTS: Dict[str, Tuple[List[Tuple[str, str]], int]] = {
     "bn128": ([], 128),
     "bn128_stages6": ([("constexpr int kStages = 4;", "constexpr int kStages = 6;")], 128),
     "warp_arrivals": ([
+        ("// ------------------------------------------------ Hopper main loop (wgmma)\n",
+         """__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\\n" ::"n"(N));
+}
+
+// ------------------------------------------------ Hopper main loop (wgmma)
+"""),
         ("      mbar_init(&full[s], 128 + 1);", "      mbar_init(&full[s], 4 + 1);"),
         ("""        cp_async_arrive(&full[s]);
       }
@@ -152,7 +162,6 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from caesar_mrcnn_tpu_torch import kernel_bench as kb
-    from caesar_mrcnn_tpu_torch.models.backbone_int8 import pad_input_channels
     from caesar_mrcnn_tpu_torch.ops import _kernels
     from caesar_mrcnn_tpu_torch.ops import library as L
     from caesar_mrcnn_tpu_torch.ops import quant as Q
@@ -165,9 +174,7 @@ def main() -> None:
         s = sites[name]
         x = torch.randint(-127, 128, (s.batch, s.h, s.w, s.cin), generator=gen, device=dev, dtype=torch.int8)
         w = torch.randint(-127, 128, (s.cout, s.k, s.k, s.cin), generator=gen, device=dev, dtype=torch.int8)
-        cin = Q.padded_channels(s.cin)
-        if cin != s.cin:
-            x, w = torch.nn.functional.pad(x, (0, cin - s.cin)).contiguous(), pad_input_channels(w)
+        x, w = Q.hopper_operands(x, w)
         sw = torch.rand(s.cout, generator=gen, device=dev) * 1e-3 + 1e-6
         b = torch.rand(s.cout, generator=gen, device=dev) * 2 - 1
         cases[name] = (s, x, w, sw, b, Q.conv2d_int8_plain(x, w, sw, b, s.stride, s.pads, s.relu))
