@@ -13,8 +13,10 @@ model's own, so the later stages run eagerly and every tensor
 ``forward_inference`` returns is made fresh for its batch. A replay
 launches the kernels the eager stage launches, on the same inputs and in
 the same order, so the pyramid equals the eager one bit for bit. The
-per-call casts of the f32 weights (``models/layers.py``) are inside the
-graph: a replay reads the live parameters.
+fold of the backbone's frozen batch norms into its convolutions (one
+``caesar::fold_conv_bn`` launch, ``models/layers.py::fold``) and the
+per-call casts of the FPN's f32 weights are inside the graph: a replay
+reads the live parameters.
 
 Each device's model has its own ``GraphedFeatures``, captured on a stream
 of that device. :func:`engages` is the rule

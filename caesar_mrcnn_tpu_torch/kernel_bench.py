@@ -441,6 +441,13 @@ def conv_int8_bound(site: ConvSite) -> Tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fold_bound(n_weights: int, n_channels: int, itemsize: int) -> Tuple[float, str]:
+    """A table of (conv, batch norm) pairs folded: each f32 weight read and
+    written once in ``itemsize`` bytes, multiplied once; each output
+    channel's five f32 vectors read and its bias written, six operations."""
+    return _bound(n_weights * (4 + itemsize) + n_channels * (5 * 4 + itemsize), n_weights + 6 * n_channels)
+
+
 def quantize_bound(n: int, itemsize: int, n_out: Optional[int] = None) -> Tuple[float, str]:
     """n values of ``itemsize`` bytes read and ``n_out`` int8 written (n,
     or more where the quantizer pads channels with zeros); a division, a

@@ -3,6 +3,13 @@
 Port of ``caesar_mrcnn_tpu/models/backbone.py``. Activations are NCHW
 tensors in channels_last memory; module and parameter names follow the
 flax tree so ``weights.flax_to_state_dict`` maps one onto the other.
+
+Where ``layers.folds`` allows (gradients off, frozen batch norms in eval
+mode, no hooks), the ResNet folds every batch norm into its conv in one
+operator call and runs each conv with its bias, residual and ReLU in one
+epilogue (``ops/fold.py``); a projection shortcut runs without bias, its
+folded bias added to conv3's. Otherwise each conv, batch norm, add and ReLU
+runs alone.
 """
 
 from __future__ import annotations
@@ -13,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, Conv2d, FrozenBatchNorm
+from ..ops.fold import conv_bias_relu
+from .layers import BatchNorm, Conv2d, FrozenBatchNorm, fold, folds
 
 # stage-4 identity-block count per architecture
 BLOCK_COUNTS = {"resnet50": 5, "resnet101": 22}
@@ -55,7 +63,25 @@ class Bottleneck(nn.Module):
         else:
             self.shortcut = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def conv_bn_pairs(self):
+        """(conv, batch norm) in order: conv1, conv2, conv3, then the
+        projection shortcut's if any."""
+        pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)]
+        return pairs if self.shortcut is None else pairs + [(self.shortcut, self.shortcut_bn)]
+
+    def forward(self, x: torch.Tensor, folded=None) -> torch.Tensor:
+        """``folded``: :meth:`conv_bn_pairs` folded (``layers.fold``; the
+        ResNet folds all of its pairs at once), or None: each conv, batch
+        norm, add and ReLU alone. Folded, a projection shortcut runs
+        without bias and conv3's epilogue adds both folded biases."""
+        if folded is not None:
+            (w1, b1), (w2, b2), (w3, b3) = folded[:3]
+            y = conv_bias_relu(x, w1, b1, stride=self.conv1.stride[0])
+            y = conv_bias_relu(y, w2, b2, padding=1)
+            if self.shortcut is None:
+                return conv_bias_relu(y, w3, b3, x)
+            w_sc, b_sc = folded[3]
+            return conv_bias_relu(y, w3, b3 + b_sc, F.conv2d(x, w_sc, None, self.shortcut.stride))
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
@@ -96,13 +122,30 @@ class ResNet(nn.Module):
                 self.add_module(name, block)
                 cin = filters[2]
 
+    def blocks(self):
+        return [getattr(self, name) for names in self.stages for name in names]
+
+    def conv_bn_pairs(self):
+        """(conv, batch norm) in order: the stem's, then each block's."""
+        return [(self.conv1, self.bn_conv1)] + [p for block in self.blocks() for p in block.conv_bn_pairs()]
+
     def forward(self, x: torch.Tensor):
-        x = F.relu(self.bn_conv1(self.conv1(x)))
+        """Where ``layers.folds`` allows, every pair is folded in one call
+        (104 in ResNet-101) and each block runs on its share."""
+        pairs = self.conv_bn_pairs()
+        folded = fold(pairs, x.dtype) if folds(pairs) else None
+        if folded is None:
+            x = F.relu(self.bn_conv1(self.conv1(x)))
+        else:
+            x = conv_bias_relu(x, *folded[0], stride=self.conv1.stride[0], padding=self.conv1.padding[0])
         x = max_pool_same(x)
-        outs = []
+        outs, i = [], 1
         for names in self.stages:
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                n = len(block.conv_bn_pairs())
+                x = block(x, None if folded is None else folded[i:i + n])
+                i += n
             outs.append(x)
         return tuple(outs)
 

@@ -8,8 +8,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fold import conv_bias_relu
 from .backbone import batch_norm
-from .layers import Conv2d, ConvTranspose2d, Linear
+from .layers import Conv2d, ConvTranspose2d, Linear, fold, folds
 
 
 class ClassifierHead(nn.Module):
@@ -63,12 +64,20 @@ class MaskHead(nn.Module):
         self.mrcnn_mask_deconv = ConvTranspose2d(256, 256, 2, stride=2)
         self.mrcnn_mask = Conv2d(256, num_classes, 1)
 
+    def conv_bn_pairs(self):
+        return [(getattr(self, f"mrcnn_mask_conv{i}"), getattr(self, f"mrcnn_mask_bn{i}")) for i in range(1, 5)]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The four 3x3 convs, each folded with its batch norm (one fold for
+        the four) where ``layers.folds`` allows, then :meth:`upsample`."""
         x = x.permute(0, 3, 1, 2)
-        for i in range(1, 5):
-            conv = getattr(self, f"mrcnn_mask_conv{i}")
-            bn = getattr(self, f"mrcnn_mask_bn{i}")
-            x = F.relu(bn(conv(x)))
+        pairs = self.conv_bn_pairs()
+        if folds(pairs):
+            for w, b in fold(pairs, x.dtype):
+                x = conv_bias_relu(x, w, b, padding=1)
+        else:
+            for conv, bn in pairs:
+                x = F.relu(bn(conv(x)))
         return self.upsample(x)
 
     def upsample(self, x: torch.Tensor) -> torch.Tensor:

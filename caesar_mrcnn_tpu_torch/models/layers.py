@@ -1,18 +1,21 @@
 """Layers that keep float32 parameters and compute in the input's dtype
 (flax's ``param_dtype=float32`` with ``dtype=compute_dtype``), frozen batch
-norm with trainable scale and bias, and the trainable batch norm of
-``train_bn=True``."""
+norm with trainable scale and bias, the trainable batch norm of
+``train_bn=True``, and the rule by which a conv and the frozen batch norm
+after it run as one folded convolution (:func:`folds`, :func:`fold`)."""
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from .. import telemetry
+from ..ops.fold import fold_conv_bn
 from ..parallel.dist import all_reduce_sum
 
 
@@ -137,3 +140,32 @@ def commit_batch_stats(model: nn.Module, stats: Dict[str, Tuple[torch.Tensor, to
     batch = [s[0] for s in stats.values()] + [s[1] for s in stats.values()]
     torch._foreach_mul_(running, BN_MOMENTUM)
     torch._foreach_add_(running, torch._foreach_mul(batch, 1.0 - BN_MOMENTUM))
+
+
+def folds(pairs: Sequence[Tuple[nn.Module, nn.Module]]) -> bool:
+    """Whether (conv, batch norm) pairs run folded (:func:`fold`): with
+    gradients off (the scale, shift and weights then need none), every
+    batch norm frozen (a :class:`FrozenBatchNorm`, or a :class:`BatchNorm`
+    outside :func:`batch_statistics`) and in eval mode (``Module.eval()``,
+    which ``inference/detector.py::Detector`` sets), and no forward hook on
+    any of the modules, whose calls the folded path skips
+    (``models/introspection.py`` hooks every module). A training run's
+    validation pass, under ``no_grad`` with the model in train mode, so
+    keeps the arithmetic of the training forward it evaluates."""
+    if torch.is_grad_enabled():
+        return False
+    return all(not bn.training and getattr(bn, "sink", None) is None
+               and not any(m._forward_hooks or m._forward_pre_hooks for m in (conv, bn))
+               for conv, bn in pairs)
+
+
+def fold(pairs: Sequence[Tuple[nn.Module, nn.Module]], dtype: torch.dtype) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Each pair's batch norm folded into its conv, ``(w', b')`` in
+    ``dtype`` (``ops/fold.py::fold_conv_bn``, one operator call for all
+    pairs, on the live parameters). Counts the pairs in
+    ``model.conv_bn_folded`` while a recording is open."""
+    convs, bns = zip(*pairs)
+    out = fold_conv_bn([c.weight for c in convs], [c.bias for c in convs], [b.scale for b in bns],
+                       [b.bias for b in bns], [b.mean for b in bns], [b.var for b in bns], BN_EPS, dtype)
+    telemetry.count("model.conv_bn_folded", len(pairs))
+    return out

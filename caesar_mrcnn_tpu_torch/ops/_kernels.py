@@ -118,6 +118,8 @@ def load(path) -> ctypes.CDLL:
     lib.caesar_quantize_int8_pad.restype = _I
     lib.caesar_paste_masks.argtypes = [_P, _P] + [_I] * 6 + [_P, _I, _P]
     lib.caesar_paste_masks.restype = _I
+    lib.caesar_fold_conv_bn.argtypes = [_P, _P, _P, _P, _I, _F, _I, _P, _P, _P]
+    lib.caesar_fold_conv_bn.restype = _I
     return lib
 
 

@@ -22,8 +22,11 @@ the kernel on the card and the plain gradient on the CPU.
 
 The public wrappers (``nms.nms_padded``, ``roi_align.roi_align``,
 ``roi_align.roi_align_backward``, ``roi_align.crop_and_resize``,
-``quant.conv2d_int8``, ``quant.quantize_int8``, ``paste.paste_masks``)
-check shapes, dtypes and devices, then call :data:`ops`. The namespace is ``caesar`` for this
+``quant.conv2d_int8``, ``quant.quantize_int8``, ``paste.paste_masks``,
+``fold.fold_conv_bn``, ``fold.conv_bias_relu``) check shapes, dtypes and
+devices, then call :data:`ops`. ``conv_bias_relu`` is the one operator
+whose CUDA implementation is cuDNN's (its fused epilogue), not a kernel of
+``csrc/``. The namespace is ``caesar`` for this
 package; a copy of the port imported under another name (``kernel_bench
 --parent``) registers its own, named after it.
 """
@@ -37,6 +40,7 @@ from typing import Dict
 import torch
 
 from . import _kernels
+from . import fold as Fo
 from . import nms as N
 from . import paste as P
 from . import quant as Q
@@ -395,6 +399,63 @@ def _conv2d_int8_fake(x, w, sw, b, stride: int, pads, relu: bool, s_next):
 # pads: (top, bottom, left, right); without sw and b the int32 sums alone
 _register("conv2d_int8(Tensor x, Tensor w, Tensor? sw, Tensor? b, int stride, int[] pads, bool relu, "
           "float? s_next) -> Tensor", _conv2d_int8_cpu, _conv2d_int8_cuda, _conv2d_int8_fake)
+
+
+# ------------------------------------------------------------- fold_conv_bn
+
+
+def _fold_conv_bn_cuda(weights, biases, scales, shifts, means, variances, eps: float, dtype):
+    """The kernel of ``csrc/fold_conv_bn.cu`` on a table of every pair's
+    addresses: 6 a pair (weight, bias, scale, shift, mean, variance)."""
+    w_off, b_off, nw, nb = Fo.fold_layout([w.shape for w in weights])
+    dev = weights[0].device
+    flat_w = torch.empty(nw, dtype=dtype, device=dev)
+    flat_b = torch.empty(nb, dtype=dtype, device=dev)
+    n = len(weights)
+    ptrs = (ctypes.c_void_p * (6 * n))(*(
+        t.data_ptr() for pair in zip(weights, biases, scales, shifts, means, variances) for t in pair))
+    dims = (ctypes.c_int * (3 * n))(*(d for w in weights for d in w.shape[:3]))
+    status = _kernels.library().caesar_fold_conv_bn(
+        ptrs, (ctypes.c_longlong * n)(*w_off), (ctypes.c_int * n)(*b_off), dims, n, float(eps), Fo.DTYPES[dtype],
+        flat_w.data_ptr(), flat_b.data_ptr(), _stream(weights[0]),
+    )
+    _kernels.check(status, "caesar_fold_conv_bn")
+    Fo.fold_conv_bn.launches += 1
+    return flat_w, flat_b
+
+
+def _fold_conv_bn_fake(weights, biases, scales, shifts, means, variances, eps: float, dtype):
+    _, _, nw, nb = Fo.fold_layout([w.shape for w in weights])
+    return weights[0].new_empty(nw, dtype=dtype), weights[0].new_empty(nb, dtype=dtype)
+
+
+# The folded weights and biases leave as two flat tensors (the kernel writes
+# every pair's into one table's outputs; outputs may not alias one another),
+# and the wrapper cuts each pair's views.
+_register("fold_conv_bn(Tensor[] weights, Tensor[] biases, Tensor[] scales, Tensor[] shifts, Tensor[] means, "
+          "Tensor[] variances, float eps, ScalarType dtype) -> (Tensor, Tensor)",
+          Fo.fold_conv_bn_plain, _fold_conv_bn_cuda, _fold_conv_bn_fake)
+
+
+# ----------------------------------------------------------- conv_bias_relu
+
+
+def _conv_bias_relu_cuda(x, w, b, z, stride: int, padding: int):
+    s, p = [stride, stride], [padding, padding]
+    if z is None:
+        return torch.cudnn_convolution_relu(x, w, b, s, p, [1, 1], 1)
+    return torch.cudnn_convolution_add_relu(x, w, z, 1.0, b, s, p, [1, 1], 1)
+
+
+def _conv_bias_relu_fake(x, w, b, z, stride: int, padding: int):
+    n, _, h, wd = x.shape
+    cout, _, k, _ = w.shape
+    shape = (n, cout, (h + 2 * padding - k) // stride + 1, (wd + 2 * padding - k) // stride + 1)
+    return x.new_empty(shape).contiguous(memory_format=torch.channels_last)
+
+
+_register("conv_bias_relu(Tensor x, Tensor w, Tensor b, Tensor? z, int stride, int padding) -> Tensor",
+          Fo.conv_bias_relu_plain, _conv_bias_relu_cuda, _conv_bias_relu_fake)
 
 
 ops = getattr(torch.ops, NAMESPACE)

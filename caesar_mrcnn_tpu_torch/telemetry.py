@@ -32,6 +32,9 @@ device). Of the int8 graph's calibration (``Detector._quantize_molded``):
 and the counter ``detect.int8.sites``. Of the float graph's features
 replayed as a CUDA graph (``inference/graphed.py``): the counters
 ``detect.features.graph_captures`` and ``detect.features.graph_replays``.
+Of the model (``models/layers.py::fold``): ``model.conv_bn_folded``, the
+(conv, batch norm) pairs run folded, counted when a forward folds them (a
+graph's replay folds without Python, uncounted).
 Of the tiled catalog (``analysis/sfinder.py::SFinder.run_tiled``):
 ``catalog.read`` (on the producer thread), ``catalog.wait``,
 ``catalog.sources``, ``catalog.gather``, ``catalog.merge``, ``catalog.save``.
@@ -127,11 +130,11 @@ def count(name: str, n: int = 1) -> None:
 
 def _launches() -> Dict[str, int]:
     """The kernel wrappers' launch counters, now."""
-    from .ops import nms, paste, quant, roi_align
+    from .ops import fold, nms, paste, quant, roi_align
 
     return {f"launches.{f.__name__}": f.launches for f in (
         nms.nms_padded, roi_align.roi_align, roi_align.roi_align_backward, roi_align.crop_and_resize,
-        quant.quantize_int8, quant.conv2d_int8, paste.paste_masks)}
+        quant.quantize_int8, quant.conv2d_int8, paste.paste_masks, fold.fold_conv_bn)}
 
 
 class Recorder:

@@ -155,9 +155,11 @@ def op_cases(device) -> List[Tuple[str, object, tuple]]:
     invalid boxes, ROIAlign with levels that take a gradient, its backward,
     the crop, the quantizer plain and padding 3 channels to 16, the int8
     convolution's three epilogues (int32 sums, f32 with ReLU, int8 at the
-    next site's scale), and the masks' paste into two tiles' frames (one
-    with a zero-area box and a zero class id, on ``device``). Inputs are
-    contiguous, as the wrappers pass them, and 16-byte aligned, as the
+    next site's scale), the masks' paste into two tiles' frames (one
+    with a zero-area box and a zero class id, on ``device``), the fold of
+    three (conv, batch norm) pairs to f32 and to bf16, and the folded convolution's epilogue with and without a
+    residual. Inputs are contiguous (activations and folded weights
+    channels_last), as the wrappers pass them, and 16-byte aligned, as the
     kernels take them."""
     from .ops.library import ops
 
@@ -198,7 +200,24 @@ def op_cases(device) -> List[Tuple[str, object, tuple]]:
     dets[1, 4:, 4] = 0  # four detections
     frames = [torch.zeros(20 * 24 * 6, dtype=torch.bool, device=device) for _ in range(2)]
     masks = t(rng.randint(0, 256, (2, 6, 28, 28)).astype(np.uint8))
-    return cases + [("paste_masks", ops.paste_masks.default, (t(dets), masks, frames, [20, 24]))]
+    cases.append(("paste_masks", ops.paste_masks.default, (t(dets), masks, frames, [20, 24])))
+    shapes = [(8, 4, 3, 3), (8, 6, 1, 1), (5, 4, 7, 7)]
+    weights = [t(rng.randn(*s).astype(np.float32)) for s in shapes]
+    norms = [[t(rng.uniform(lo, hi, s[0]).astype(np.float32)) for s in shapes]
+             for lo, hi in ((-0.1, 0.1), (0.8, 1.2), (-0.1, 0.1), (-0.1, 0.1), (0.5, 2.0))]
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append((f"fold_conv_bn to {str(dtype)[6:]}", ops.fold_conv_bn.default,
+                      (weights, *norms, 1e-3, dtype)))
+
+    def cl(a):
+        return t(a.astype(np.float32)).contiguous(memory_format=torch.channels_last)
+
+    x, w3 = cl(rng.randn(2, 8, 6, 6)), cl(rng.randn(16, 8, 3, 3) / 8)
+    return cases + [
+        ("conv_bias_relu", ops.conv_bias_relu.default, (x, w3, bias.repeat(2), None, 1, 1)),
+        ("conv_bias_relu with a residual", ops.conv_bias_relu.default,
+         (x, w3, bias.repeat(2), cl(rng.randn(2, 16, 3, 3)), 2, 1)),
+    ]
 
 
 def paste_inputs(rng, b: int, d: int, shape) -> Tuple[np.ndarray, np.ndarray]:

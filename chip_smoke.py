@@ -202,6 +202,8 @@ NO_LIBRARY = {
                    "has no int8 convolution on CUDA for the others",
     "quantize_int8": "none: torch.quantize_per_tensor multiplies by the reciprocal of the scale and clips to "
                      "[-128, 127]; the JAX graph divides and clips to +-127",
+    "fold_conv_bn": "none: no PyTorch call folds a table of batch norms into their convolutions; a loop of "
+                    "mul and sub calls launches several kernels a pair",
     "paste_masks": "none: F.interpolate takes one output size a call and every detection has its own box, and no "
                    "PyTorch call writes a device result into pinned host memory",
 }
@@ -678,6 +680,62 @@ def check_quantize_int8(dev, rng, card_name: str) -> dict:
     return rec
 
 
+def check_fold_conv_bn(dev, card_name: str) -> dict:
+    """The fold of the flagship detector's own (conv, batch norm) pairs
+    (ResNet-101's 104, the mask head's 4; batch norms and biases seeded off
+    their defaults), to bf16 (the path's) and f32, bit-equal to the plain
+    version on the CPU, then timed: the wrapper's call (CUDA events) and
+    the kernel alone (profiler). Bound by bytes: 4 read and 2 (bf16) or 4
+    written a weight, plus the vectors."""
+    import torch
+
+    from caesar_mrcnn_tpu_torch import kernel_bench as kb
+    from caesar_mrcnn_tpu_torch.models import layers
+    from caesar_mrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from caesar_mrcnn_tpu_torch.ops import fold as Fo
+
+    model = MaskRCNN(flagship_config())
+    randomize_affine(model)
+    model.to(dev)
+    rec = _record()
+    for part, m in (("backbone", model.backbone), ("mask head", model.mask_head)):
+        convs, bns = zip(*m.conv_bn_pairs())
+        args = ([c.weight.detach() for c in convs], [c.bias.detach() for c in convs],
+                [b.scale.detach() for b in bns], [b.bias.detach() for b in bns], [b.mean for b in bns],
+                [b.var for b in bns])
+        cpu = [[t.cpu() for t in a] for a in args]
+        n_w, n_c = sum(w.numel() for w in args[0]), sum(w.shape[0] for w in args[0])
+        for dtype in (torch.bfloat16, torch.float32):
+            def kernel():
+                return Fo.fold_conv_bn(*args, layers.BN_EPS, dtype)
+
+            def plain():
+                return Fo.fold_conv_bn_plain(*args, layers.BN_EPS, dtype)
+
+            before = Fo.fold_conv_bn.launches
+            got = kernel()
+            torch.cuda.synchronize()
+            if Fo.fold_conv_bn.launches != before + 1:
+                raise AssertionError(f"fold_conv_bn {part}: {Fo.fold_conv_bn.launches - before} launches, expected 1")
+            want = Fo.fold_conv_bn(*cpu, layers.BN_EPS, dtype)
+            bad = sum(int((g.cpu() != w).sum()) for gw, w_ in zip(got, want) for g, w in zip(gw, w_))
+            if bad:
+                raise AssertionError(f"fold_conv_bn {part} to {dtype}: {bad} values differ from the plain version")
+            ms, plain_ms = kb.median_ms(kernel, kb.REPS), kb.median_ms(plain, 5)
+            alone = sum(t for k, (t, _) in kb.device_split(kernel, kb.REPS).items() if "fold_conv_bn_kernel" in k)
+            bound = kb.fold_bound(n_w, n_c, torch.empty(0, dtype=dtype).element_size())
+            print(f"kernels: fold_conv_bn {part} {len(convs)} pairs, {n_w} weights, to {str(dtype)[6:]}: bit-equal; "
+                  f"call {ms:.4f} ms, kernel alone {alone:.4f} ms (profiler), plain {plain_ms:.4f} ms (median, "
+                  f"CUDA events); {share(bound[0], ms)}, kernel alone {bound[0] / alone:.3f} ({bound[1]}) "
+                  f"[{card_name}]")
+            if dtype == torch.bfloat16:  # the path's
+                _add(rec, 0.0, ms, plain_ms, bound)
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+# -------------------------------------------------------------------- slice
 # -------------------------------------------------------------------- slice
 
 
@@ -725,6 +783,7 @@ def check_slice(card_name: str) -> tuple:
     import torch
 
     from caesar_mrcnn_tpu_torch.inference.detector import build_detector
+    from caesar_mrcnn_tpu_torch.ops.fold import fold_conv_bn
     from caesar_mrcnn_tpu_torch.ops.nms import nms_padded
     from caesar_mrcnn_tpu_torch.ops.paste import paste_masks
     from caesar_mrcnn_tpu_torch.ops.roi_align import roi_align
@@ -741,12 +800,16 @@ def check_slice(card_name: str) -> tuple:
     batches = len(tiles) // cfg.batch_size
 
     torch.cuda.reset_peak_memory_stats()
-    nms_padded.launches = roi_align.launches = paste_masks.launches = 0
+    nms_padded.launches = roi_align.launches = paste_masks.launches = fold_conv_bn.launches = 0
     results = run_pass(det, tiles)
-    launches = {"nms": nms_padded.launches, "roi_align": roi_align.launches, "paste_masks": paste_masks.launches}
-    if launches != {"nms": 2 * batches, "roi_align": 2 * batches, "paste_masks": batches}:
-        raise AssertionError(f"kernel launches on the main path {launches}, expected 2, 2 and 1 per batch x "
-                             f"{batches}")
+    launches = {"nms": nms_padded.launches, "roi_align": roi_align.launches, "paste_masks": paste_masks.launches,
+                "fold_conv_bn": fold_conv_bn.launches}
+    # the fold: the backbone's in the features graph's warm-up pass and in its capture (a replay launches it
+    # without Python), the mask head's once a batch
+    if launches != {"nms": 2 * batches, "roi_align": 2 * batches, "paste_masks": batches,
+                    "fold_conv_bn": 2 + batches}:
+        raise AssertionError(f"kernel launches on the main path {launches}, expected 2, 2, 1 and 1 per batch x "
+                             f"{batches}, and 2 fold_conv_bn at the capture")
     for r in results:
         n = len(r["class_ids"])
         if r["masks"].shape != (512, 512, n) or r["rois"].shape != (n, 4):
@@ -759,7 +822,11 @@ def check_slice(card_name: str) -> tuple:
     if len(results) != len(tiles) or sum(counts) == 0:
         raise AssertionError(f"{len(results)} results, detections per tile {counts}")
 
+    fold_conv_bn.launches = 0
     run_pass(det, tiles)  # steady state
+    if fold_conv_bn.launches != batches:
+        raise AssertionError(f"fold_conv_bn launches after the capture {fold_conv_bn.launches}, expected 1 per batch "
+                             f"x {batches} (the mask head's)")
     torch.cuda.synchronize()
     t = time.perf_counter()
     run_pass(det, tiles)
@@ -1091,6 +1158,9 @@ def check_catalog_parity(card_name: str) -> None:
 INT8_SITES = 123  # int8 convolutions per detect batch at ResNet-101
 INT8_FUSED = 70  # of them requantizing for the next in their epilogue
 INT8_QUANTIZERS = INT8_SITES - INT8_FUSED  # quantizer passes per batch
+# the float graph's folded convolutions: ResNet-101's stem and its 33 blocks' three (the 4 projection shortcuts, folded
+# too, run ATen's conv without bias), the mask head's four
+FOLDED_CONVS = 1 + 3 * 33 + 4
 
 
 def _int8_counters():
@@ -1281,14 +1351,14 @@ import json, sys, time
 import numpy as np
 import torch
 from caesar_mrcnn_tpu_torch.inference.export import ServingDetector, caesar_nodes
-from caesar_mrcnn_tpu_torch.ops import nms, quant, roi_align
+from caesar_mrcnn_tpu_torch.ops import fold, nms, quant, roi_align
 
 path, molded_path, tiles_path, raw_path = sys.argv[1:5]
 t = time.perf_counter()
 srv = ServingDetector(path)
 load_s = time.perf_counter() - t
 counters = {"nms": nms.nms_padded, "roi_align": roi_align.roi_align, "conv2d_int8": quant.conv2d_int8,
-            "quantize_int8": quant.quantize_int8}
+            "quantize_int8": quant.quantize_int8, "fold_conv_bn": fold.fold_conv_bn}
 for k in counters.values():
     k.launches = 0
 quant.conv2d_int8.route_launches = {"wgmma": 0}
@@ -1342,16 +1412,18 @@ def check_export(card_name: str) -> dict:
     x, metas, anchors = _premold(det8, tiles[:det8.config.batch_size])
     bf16 = Detector(flagship_config(pre_nms_limit=3000, post_nms_rois_inference=512), det8.model, "cuda")
     images = [np.repeat(t[..., None], 3, -1).astype(np.float32) for t in tiles]
-    per_batch = {"nms": 2, "roi_align": 2, "conv2d_int8": 0, "quantize_int8": 0}
+    per_batch = {"nms": 2, "roi_align": 2, "conv2d_int8": 0, "quantize_int8": 0, "fold_conv_bn": 0}
     total = {}
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         molded_path, tiles_path, raw_path = (os.path.join(tmp, n) for n in ("molded.pt", "tiles.npy", "raw.pt"))
         torch.save(x.cpu(), molded_path)
         np.save(tiles_path, tiles)
-        for name, det, expected in (
-                ("bf16", bf16, per_batch),
-                ("int8", det8, {**per_batch, "conv2d_int8": INT8_SITES, "quantize_int8": INT8_QUANTIZERS})):
+        # the float graph folds its frozen batch norms (the backbone's 104 pairs, the mask head's 4: one
+        # launch each) and runs FOLDED_CONVS conv_bias_relu (cuDNN's, which counts no launch)
+        for name, det, expected, uncounted in (
+                ("bf16", bf16, {**per_batch, "fold_conv_bn": 2}, {"conv_bias_relu": FOLDED_CONVS}),
+                ("int8", det8, {**per_batch, "conv2d_int8": INT8_SITES, "quantize_int8": INT8_QUANTIZERS}, {})):
             art = os.path.join(tmp, f"{name}.pt2")
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -1389,7 +1461,8 @@ def check_export(card_name: str) -> dict:
                   f"included); detections per tile {out['detections']} / {counts} [{card_name}]")
             if out["models"]:
                 raise AssertionError(f"export {name}: the serving process imported {out['models']}")
-            if out["launches"] != expected or out["nodes"] != {k: v for k, v in expected.items() if v}:
+            nodes = {**{k: v for k, v in expected.items() if v}, **uncounted}
+            if out["launches"] != expected or out["nodes"] != nodes:
                 raise AssertionError(f"export {name}: launches {out['launches']}, nodes {out['nodes']}, "
                                      f"expected {expected} per batch")
             if out["routes"] != {"wgmma": expected["conv2d_int8"]}:
@@ -3122,6 +3195,7 @@ def main() -> None:
     crop = check_crop_and_resize(dev, rng, card_name)
     conv8, conv8_library = check_conv_int8(dev, card_name)
     quant8 = check_quantize_int8(dev, rng, card_name)
+    fold = check_fold_conv_bn(dev, card_name)
     torch.cuda.empty_cache()
     detect, path_batch = check_slice(card_name)
     paste = check_paste_masks(rng, path_batch, card_name)
@@ -3177,6 +3251,7 @@ def main() -> None:
          "serving_routes": serving_routes},
         record("quantize_int8", "conv_int8.cu", "caesar_mrcnn_tpu/models/backbone_int8.py:272", quant8),
         record("paste_masks", "paste_masks.cu", "caesar_mrcnn_tpu/inference/detector.py:186", paste),
+        record("fold_conv_bn", "fold_conv_bn.cu", "caesar_mrcnn_tpu/models/backbone_int8.py:93", fold),
     ]
     print(card_name)
     print(json.dumps({"kernels": kernels}))

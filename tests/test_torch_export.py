@@ -13,14 +13,16 @@ with the classifier's bias set to ``[0, 0, 6, 0]``, carried to the port by
 * the port's artifact against the port's live ``Detector`` on the same
   batch, bit for bit: the loaded program runs the same ATen operators and
   the same ``caesar`` operators in the same order;
-* the exported graphs' ``caesar::*`` nodes: 2 NMS and 2 ROIAlign, and in
-  the int8 graph one ``conv2d_int8`` per site and one ``quantize_int8``
+* the exported graphs' ``caesar::*`` nodes: 2 NMS and 2 ROIAlign; in the
+  float graph 2 folds of the frozen batch norms (the backbone's, the mask
+  head's) and one folded convolution a pair; in the int8 graph one
+  ``conv2d_int8`` per site and one ``quantize_int8``
   per input that no convolution quantized in its epilogue; no profiler
   node (the telemetry spans of ``forward_inference`` add none while
   recording is off);
 * the sidecar, partial batches, the size and count checks, the zero-area
   drop, the refusal of an int8 detector with no int8 graph, and
-  ``torch.library.opcheck`` of the seven operators;
+  ``torch.library.opcheck`` of the nine operators;
 * a ``ServingDetector`` in a subprocess with the model code
   (``caesar_mrcnn_tpu_torch.models``, ``.config``, ``.weights``), jax and
   the JAX package blocked from import.
@@ -160,8 +162,11 @@ def test_serving_detector_equals_live_detector_bitwise(exported, servers, graph)
 
 def test_exported_graphs_hold_the_kernel_operators(servers, weights):
     """Each artifact, as loaded, calls the port's kernels as operators: 2
-    NMS (proposals, detections) and 2 ROIAlign (pool 7 and 14); the int8
-    graph also one convolution per site and one quantizer per input that
+    NMS (proposals, detections) and 2 ROIAlign (pool 7 and 14); the float
+    graph also 2 folds (the custom backbone's 41 pairs, the mask head's 4)
+    and 41 folded convolutions (the stem, three in each of the 12 blocks,
+    the mask head's four; the projection shortcuts run ATen's); the int8
+    graph one convolution per site and one quantizer per input that
     no convolution before it requantized (the sites' own walk,
     ``kernel_bench.int8_sites``)."""
     jcfg = weights[0]
@@ -169,7 +174,7 @@ def test_exported_graphs_hold_the_kernel_operators(servers, weights):
                                     jcfg.detection_max_instances)
     fused = {s.then for s in sites if s.then}
     assert len(sites) == 60 and len(fused) == 28
-    expected = {"float": {"nms": 2, "roi_align": 2},
+    expected = {"float": {"nms": 2, "roi_align": 2, "fold_conv_bn": 2, "conv_bias_relu": 41},
                 "int8": {"nms": 2, "roi_align": 2, "conv2d_int8": len(sites), "quantize_int8": len(sites) - len(fused)}}
     for graph, want in expected.items():
         assert caesar_nodes(servers[graph].program) == want, graph
